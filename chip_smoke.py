@@ -1,0 +1,330 @@
+"""Drive the PyTorch/CUDA port on one CUDA card and check it.
+
+  python3 chip_smoke.py              # all phases (needs one CUDA card)
+  python3 chip_smoke.py --profile    # also trace the main path with
+                                     # torch.profiler (device time by kernel)
+
+Phases, in order; any failure exits non-zero:
+  1. the device: torch's name for it and nvidia-smi's name and power limit;
+  2. build every CUDA kernel of the main path with nvcc (sm_90a);
+  3. each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it (a 32-frame batch of padded 800x600
+     stereo frames) plus the synthetic edge frames: labels must agree bit
+     for bit; times from CUDA events (median of 12 after warm-up);
+  4. the main path at full width: 192 stereo 800x600 frames rendered by the
+     port's simulator, written as PGM files and calibrated through
+     ``vicalib_tpu_torch.cli.main`` (the linear model, camera-only); the
+     cameras.xml it writes is held to the simulator's ground truth and the
+     kernel's launch count must have risen during this phase;
+  5. the ``kernels`` JSON line, the nvidia-smi line and, last, the result.
+
+Imports nothing of JAX or the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+N_FRAMES = 192                 # per camera, as the JAX bench (bench.py:36)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+INT_OPS_PER_S = 67e12          # H100 non-tensor 32-bit rate (fp32 peak)
+REPLACES = {"threshold_and_label": "vicalib_tpu/detect/pallas_kernels.py:194"}
+SOURCES = {"threshold_and_label": "vicalib_tpu_torch/csrc/threshold_label.cu"}
+
+
+def fail(msg):
+    print("FAIL: " + msg, file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi_line():
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if res.returncode != 0:
+        fail("nvidia-smi failed: %s" % res.stderr)
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps=12, warmup=2):
+    """Median milliseconds of fn() by CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def stereo_config(sim, n_frames):
+    """The bench geometry (800x600, target at 0.35 m, orbit 0.12 m) as a
+    visual-only stereo rig: cam 0 at the rig origin, cam 1 at -0.12 m y."""
+    cfg = sim.default_stereo_vi_config(n_frames=n_frames, model="linear",
+                                       distance=0.35, orbit_radius=0.12)
+    cfg.cameras[0].T_ck = (np.array([0.0, 0.0, 0.0, 1.0]), np.zeros(3))
+    cfg.cameras[1].T_ck = (np.array([0.0, 0.0, 0.0, 1.0]),
+                           np.array([0.0, -0.12, 0.0]))
+    return cfg
+
+
+def edge_frames():
+    """(serpentine that needs more sweeps than the bound, >512 dots)."""
+    serp = np.full((1, 64, 256), 255, np.float32)
+    for r in range(4, 60, 3):
+        serp[0, r, 4:250] = 0
+    for i, r in enumerate(range(4, 57, 3)):
+        serp[0, r:r + 4, 249 if i % 2 == 0 else 4] = 0
+    dots = np.full((1, 128, 256), 255, np.float32)
+    for y in range(2, 126, 4):
+        for x in range(2, 254, 4):
+            dots[0, y:y + 2, x:x + 2] = 0
+    return serp, dots
+
+
+def kernel_phase(dev):
+    from vicalib_tpu_torch.detect import kernels
+    from vicalib_tpu_torch.detect.conics import MAX_BATCH, _pad_to_tiles
+    from vicalib_tpu_torch.io import sim
+
+    cfg = stereo_config(sim, MAX_BATCH // 2)
+    t0 = time.time()
+    data = sim.simulate(cfg, device=dev)
+    frames = np.concatenate([sim.render_frames(data, cam=c, device=dev)
+                             for c in range(2)])
+    log("rendered %s frames in %.2f s" % (frames.shape, time.time() - t0))
+    imgs = torch.from_numpy(frames).to(dev).to(torch.float32)
+    padded, H0, W0 = _pad_to_tiles(imgs)
+    padded = padded.contiguous()
+    radius = max(int(W0 / 30.0 / 2), 1)
+    kw = dict(at_threshold=0.9, black_on_white=True, n_iters=64,
+              max_labels=512)
+
+    _, lab_k = kernels.threshold_and_label(padded, radius, **kw)
+    torch.cuda.synchronize()
+    _, lab_p, sweeps = kernels.threshold_and_label_ref(
+        padded, radius, return_sweeps=True, **kw)
+    mism = int((lab_k != lab_p).sum())
+    err = int((lab_k.to(torch.int64) - lab_p.to(torch.int64)).abs().max())
+    log("threshold_and_label %s: %d mismatching labels, %d labelled px, "
+        "sweeps per frame (label, compact) max %s"
+        % (tuple(padded.shape), mism, int((lab_p > 0).sum()),
+           sweeps.max(dim=0).values.tolist()))
+    if mism:
+        fail("kernel labels differ from the plain version")
+    for name, fr in zip(("serpentine", ">512 dots"), edge_frames()):
+        t = torch.from_numpy(fr).to(dev)
+        _, a = kernels.threshold_and_label(t, 4, **kw)
+        _, b = kernels.threshold_and_label_ref(t, 4, **kw)
+        torch.cuda.synchronize()
+        n = int((a != b).sum())
+        log("edge frame %s: %d mismatching labels" % (name, n))
+        if n:
+            fail("kernel differs from the plain version on " + name)
+        mism += n
+
+    ms = time_ms(lambda: kernels.threshold_and_label(padded, radius, **kw))
+    plain_ms = time_ms(
+        lambda: kernels.threshold_and_label_ref(padded, radius, **kw))
+    B, H, W = padded.shape
+    npx = B * H * W
+    bytes_moved = npx * (4 + 4)            # f32 frames in, int32 labels out
+    # box sums ((2r+1) adds per axis), mean/threshold (3), rank scan (2),
+    # and 9 ops (8 mins + compare) per pixel for each sweep the data needs
+    ops = npx * (2 * (2 * radius + 1) + 3 + 2) \
+        + int(sweeps.sum()) * H * W * 9
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT_OPS_PER_S * 1e3
+    row = {"name": "threshold_and_label", "route": "cuda",
+           "source": SOURCES["threshold_and_label"],
+           "replaces": REPLACES["threshold_and_label"],
+           "launches": None, "max_abs_err": float(err), "mismatches": mism,
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
+           "library_ms": None, "shape": [B, H, W],
+           "sweeps": int(sweeps.sum())}
+    log("kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+        % (ms, plain_ms, row["bound_ms"], row["bound_by"]))
+    return [row]
+
+
+class _Capture(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.timings = None
+
+    def emit(self, record):
+        if hasattr(record, "timings"):
+            self.timings = record.timings
+
+
+def _device_profile(prof, wall_s, top=15):
+    """Device time by kernel (and copy) from a torch.profiler run, and the
+    device's busy share of the wall time.  Only device-side events count,
+    so an op and the kernel it launched are not counted twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    log("profile: device busy %.1f ms of %.1f ms wall (%.1f%%), %d device "
+        "events; top:" % (busy_ms, wall_s * 1e3,
+                          100.0 * busy_ms / (wall_s * 1e3),
+                          sum(r[1] for r in rows)))
+    for ms, n, key in rows[:top]:
+        log("  %9.3f ms %6d x  %s" % (ms, n, key[:90]))
+
+
+def main_path_phase(dev, n_frames, profile=False):
+    from vicalib_tpu_torch import cli
+    from vicalib_tpu_torch.detect import kernels
+    from vicalib_tpu_torch.geometry import quat_np, se3
+    from vicalib_tpu_torch.io import sim, sources
+    from vicalib_tpu_torch.io.outputs import read_cameras_xml
+
+    cfg = stereo_config(sim, n_frames)
+    with tempfile.TemporaryDirectory(prefix="vicalib_smoke_") as root:
+        t0 = time.time()
+        data = sim.simulate(cfg, device=dev)
+        dirs = []
+        for c in range(2):
+            d = os.path.join(root, "cam%d" % c)
+            os.makedirs(d)
+            for k, img in enumerate(sim.render_frames(data, cam=c,
+                                                      device=dev)):
+                sources.write_pgm(os.path.join(d, "f%05d.pgm" % k), img)
+            dirs.append(d)
+        log("rendered and wrote %d x 2 frames in %.2f s"
+            % (n_frames, time.time() - t0))
+        xml = os.path.join(root, "cameras.xml")
+        logf = os.path.join(root, "vicalibrator.log")
+        argv = ["-models", "linear,linear",
+                "-cam", "file://[%s/*.pgm,%s/*.pgm]" % tuple(dirs),
+                "-nouse_only_when_static", "-output", xml,
+                "-output_log_file", logf]
+        cap = _Capture()
+        logging.getLogger("vicalib_tpu_torch.engine").addHandler(cap)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        prof = None
+        if profile:
+            from torch.profiler import ProfilerActivity
+            prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.time()
+        rc = cli.main(argv, device=str(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            _device_profile(prof, wall)
+        launches = dict(kernels.LAUNCHES)
+        log("cli.main rc=%d in %.2f s; phase seconds %s; launches %s"
+            % (rc, wall, cap.timings, launches))
+        if rc != 0:
+            fail("cli.main returned %d" % rc)
+        for k, n in launches.items():
+            if n <= 0:
+                fail("kernel %s was not launched on the main path" % k)
+        cams = read_cameras_xml(xml)
+        with open(logf) as f:
+            rmse = [float(x) for x in re.findall(r"rmse: ([0-9.eE+-]+) px",
+                                                 f.read())]
+    if len(cams) != 2 or len(rmse) != 2:
+        fail("expected 2 cameras in cameras.xml and the log")
+    for c in range(2):
+        dp = np.abs(cams[c]["params"] - cfg.cameras[c].params[:4])
+        log("cam %d params %s (truth %s) |d| max %.4g px"
+            % (c, np.round(cams[c]["params"], 4), cfg.cameras[c].params[:4],
+               dp.max()))
+        if not np.all(np.isfinite(cams[c]["params"])) or dp.max() > 0.5:
+            fail("cam %d intrinsics off by more than 0.5 px" % c)
+    # T_ck = T_wc^-1 (vision RDF); cam 1 relative to cam 0 vs the truth
+    T = []
+    for c in range(2):
+        q_wc = quat_np.from_matrix(cams[c]["T_wc"][:3, :3])
+        T.append(quat_np.se3_inverse((q_wc, cams[c]["T_wc"][:3, 3])))
+    rel = quat_np.se3_mul(T[1], quat_np.se3_inverse(T[0]))
+    q_t, t_t = cfg.cameras[1].T_ck
+    e = quat_np.se3_mul(rel, quat_np.se3_inverse((np.asarray(q_t),
+                                                  np.asarray(t_t))))
+    err = float(torch.linalg.norm(se3.log(
+        (torch.as_tensor(e[0]), torch.as_tensor(e[1])))))
+    log("cam 1 extrinsic error %.3e (gate 1e-3), rmse %s px (gate 0.12)"
+        % (err, rmse))
+    if not err < 1e-3:
+        fail("cam 1 extrinsic error %.3e above 1e-3" % err)
+    if not max(rmse) < 0.12:
+        fail("rmse %s above 0.12 px" % rmse)
+    return launches, cap.timings, wall, rmse, err
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the main path with torch.profiler")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs a CUDA card")
+    from vicalib_tpu_torch.detect import kernels
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    log("device: %s (%d visible); nvidia-smi: %s"
+        % (kind, torch.cuda.device_count(), smi))
+    log(sys.version.split()[0], torch.__version__, torch.version.cuda)
+
+    t0 = time.time()
+    kernels.build(verbose=True)
+    log("kernel build: %.2f s" % (time.time() - t0))
+
+    rows = kernel_phase(dev)
+    launches, timings, wall, rmse, err = main_path_phase(
+        dev, N_FRAMES, profile=args.profile)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    log("main path: %s" % json.dumps(
+        {"frames_per_camera": N_FRAMES, "cli_wall_s": wall,
+         "phase_s": timings, "rmse_px": rmse, "cam1_T_err": err}))
+    log(smi)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,41 @@
+"""Calibration state and problems between numpy dicts and the port.
+
+The only "weights" this system carries are calibration state and
+observations.  The dict keys are the field names of ``CalibState`` and
+``CameraObs``, which are also the JAX package's names, so one dict of numpy
+arrays gives both packages the same inputs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .solver.assemble import ProblemData
+from .solver.problem import CalibState, SharedLayout
+from .solver.residuals import CameraObs
+
+
+def state_from_numpy(d, device, dtype=torch.float64) -> CalibState:
+    """dict of arrays keyed by CalibState field -> CalibState on device."""
+    return CalibState(**{k: torch.as_tensor(np.array(d[k]), device=device)
+                         .to(dtype) for k in CalibState._fields})
+
+
+def state_to_numpy(state: CalibState) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def problem_from_numpy(d, device, dtype=torch.float64) -> ProblemData:
+    """dict {"model_names", "n_frames", "obs": [per-camera dicts with
+    frame_idx, p_w, p_c, valid, points_per_frame]} -> ProblemData."""
+    obs = []
+    for o in d["obs"]:
+        def T(x, dt=dtype):
+            return torch.as_tensor(np.array(x), device=device).to(dt)
+        obs.append(CameraObs(frame_idx=T(o["frame_idx"], torch.int64),
+                             p_w=T(o["p_w"]), p_c=T(o["p_c"]),
+                             valid=T(o["valid"]),
+                             points_per_frame=o.get("points_per_frame")))
+    return ProblemData(obs=obs, imu=None,
+                       layout=SharedLayout.create(d["model_names"]),
+                       n_frames=int(d["n_frames"]))

@@ -1,0 +1,413 @@
+"""VicalibEngine: end-to-end calibration orchestration, camera-only.
+
+Reference analog: VicalibEngine + VicalibTask (src/vicalib-engine.cc,
+src/vicalib-task.cc) — sensor replay, frame selection, detection,
+measurement assembly, the staged solve, success validation and output
+writing.  Batch-first: frames are read and detected in bulk (the batched
+conic finder on the device + host grid association), then one staged solver
+run replaces the background solver thread.
+
+Everything runs on the engine's explicit device, ``"cuda"`` unless the
+caller passes ``device="cpu"``.  The IMU path and the other parts not
+ported yet raise NotImplementedError when a flag asks for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+
+import numpy as np
+import torch
+
+from .config import VicalibConfig
+from .device import resolve_device
+from .geometry import quat_np
+from .io import native as native_io
+from .io import outputs as out_io
+from .io import sources
+from .targets import grid as grid_mod
+from .targets import pattern_export
+from .targets.grid_match import match_target
+from .utils import CalibrationStats, CalibrationStatus
+
+log = logging.getLogger("vicalib_tpu_torch.engine")
+
+# (config field, predicate "the flag asks for it", ROADMAP queue item)
+UNPORTED_FLAGS = (
+    ("imu", bool, "the IMU path (imu/, solver/weights, the VI stages)"),
+    ("stream_chunk", lambda v: v > 0, "streaming/checkpoint/tracker"),
+    ("resume_file", bool, "streaming/checkpoint/tracker"),
+    ("checkpoint_file", bool, "streaming/checkpoint/tracker"),
+    ("report_file", bool, "report/viz/status/io.uvc"),
+    ("status_port", lambda v: v > 0, "report/viz/status/io.uvc"),
+    ("compute_covariance", bool, "the IMU path (shared_covariance)"),
+    ("n_shards", lambda v: v > 1, "dist/ -> torch.distributed"),
+    ("coordinator_address", bool, "dist/ -> torch.distributed"),
+    ("num_processes", lambda v: v > 0, "dist/ -> torch.distributed"),
+    ("profile_dir", bool, "report/viz/status/io.uvc (observability)"),
+)
+
+
+@dataclasses.dataclass
+class EngineResult:
+    success: bool
+    stats: CalibrationStats
+    state: object                  # solver CalibState (tensors)
+    result: object                 # solver StagedResult
+    model_names: list
+    timings: dict = None           # seconds per phase (device-synchronized)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _detect_all(images, target, cfg, device, max_conics=512):
+    """Detect + associate the grid in every frame of one channel.
+
+    images: list of (H, W) uint8.  Returns pixels (F, P, 2), visible (F, P),
+    conic_rows (list for -output_conics).
+    """
+    from .detect.conics import ConicParams, find_conics_batch
+
+    F = len(images)
+    P = target.n_points
+    params = ConicParams(max_conics=max_conics,
+                         min_area=cfg.conic_min_area,
+                         min_density=cfg.conic_min_density,
+                         min_aspect=cfg.conic_min_aspect,
+                         refine_iters=cfg.conic_refine_iters,
+                         refine_power=cfg.conic_refine_power)
+    # Chunks of 32 frames upload as uint8 (the cast to float32 happens on
+    # the device) and are dispatched a few chunks ahead of the pulls.
+    chunk = 32
+    window = 4
+    pixels = np.zeros((F, P, 2))
+    visible = np.zeros((F, P), dtype=bool)
+    conic_rows = []
+    pts = target.circles_3d() if cfg.output_conics else None
+
+    def dispatch(i):
+        imgs = torch.from_numpy(np.stack(images[i:i + chunk]))
+        return find_conics_batch(
+            imgs, params, at_threshold=cfg.at_threshold,
+            at_window_ratio=cfg.at_window_ratio,
+            black_on_white=cfg.black_on_white, device=device)
+
+    log.info("grid association: %s matcher", "native"
+             if native_io.get_lib() is not None else "python")
+    starts = list(range(0, F, chunk))
+    inflight = {i: dispatch(i) for i in starts[:window]}
+    for ci, i in enumerate(starts):
+        det = {k: v.cpu().numpy() for k, v in inflight.pop(i).items()}
+        nxt = ci + window
+        if nxt < len(starts):
+            inflight[starts[nxt]] = dispatch(starts[nxt])
+        # grid association: the threaded native batch matcher when the
+        # native host library is there, the python matcher otherwise
+        batch = native_io.match_grid_batch(det["center"], det["radius"],
+                                           det["valid"], target.grid)
+        for k in range(det["center"].shape[0]):
+            if batch is not None:
+                if int(batch[0][k]) < 0:
+                    continue
+                grid_coords = batch[1][k]
+            else:
+                m = match_target(det["center"][k], det["radius"][k],
+                                 det["valid"][k], target, backend="numpy")
+                if not m.ok:
+                    continue
+                grid_coords = m.grid_coords
+            sel = grid_coords[:, 0] >= 0
+            gidx = (grid_coords[sel, 1] * target.cols + grid_coords[sel, 0])
+            pixels[i + k, gidx] = det["center"][k][sel]
+            visible[i + k, gidx] = True
+            if cfg.output_conics:
+                for co, gi in zip(np.where(sel)[0], gidx):
+                    u, v = det["center"][k][co]
+                    x, y, z = pts[gi]
+                    conic_rows.append((i + k, int(gi), u, v, x, y, z))
+    return pixels, visible, conic_rows
+
+
+def make_grid(cfg: VicalibConfig) -> grid_mod.TargetGrid:
+    """CreateGrid (vicalib-engine.cc:453-495); -grid_file loads a real
+    printed target's bit pattern (see grid.load_grid_file)."""
+    if cfg.grid_file:
+        target = grid_mod.load_grid_file(
+            cfg.grid_file, cfg.grid_spacing, cfg.grid_large_rad,
+            cfg.grid_small_rad)
+    elif cfg.grid_preset:
+        target = grid_mod.load_preset(cfg.grid_preset)
+    else:
+        target = grid_mod.TargetGrid(
+            grid_mod.make_pattern(cfg.grid_height, cfg.grid_width,
+                                  cfg.grid_seed),
+            cfg.grid_spacing, cfg.grid_large_rad, cfg.grid_small_rad)
+    if cfg.output_pattern_file:
+        path = cfg.output_pattern_file
+        if path.lower().endswith(".eps"):
+            pattern_export.save_eps(target, path)
+        else:
+            pattern_export.save_svg(target, path)
+        log.info("File %s saved", path)
+    return target
+
+
+def camera_calibrations_differ(cfg, model_name, last_params, cur_params,
+                               last_T, cur_T):
+    """Success validation vs a previous calibration
+    (CameraCalibrationsDiffer, vicalib-task.cc:714-805)."""
+    last_params = np.asarray(last_params)
+    cur_params = np.asarray(cur_params)[:len(last_params)]  # strip padding
+    diffs = np.abs(last_params - cur_params)
+    lims = [cfg.max_fx_diff, cfg.max_fy_diff, cfg.max_cx_diff,
+            cfg.max_cy_diff]
+    for i, lim in enumerate(lims):
+        if diffs[i] > lim:
+            log.error("intrinsic %d differs too much (%f)", i, diffs[i])
+            return True
+    if model_name == "fov" and diffs[4] > cfg.max_fov_w_diff:
+        log.error("fov distortion differs too much (%f)", diffs[4])
+        return True
+    if model_name == "poly3" and (
+            diffs[4] > cfg.max_poly3_diff_k1
+            or diffs[5] > cfg.max_poly3_diff_k2
+            or diffs[6] > cfg.max_poly3_diff_k3):
+        log.error("poly3 distortion differs too much")
+        return True
+    dist = np.linalg.norm(np.asarray(last_T[1]) - np.asarray(cur_T[1]))
+    if dist > cfg.max_camera_trans_diff:
+        log.error("camera position differs by %f", dist)
+        return True
+    dq = quat_np.quat_mul(quat_np.inverse(np.asarray(last_T[0])),
+                          np.asarray(cur_T[0]))
+    R = quat_np.to_matrix(dq)
+    ax = np.arctan2(R[2, 1], R[2, 2])
+    ay = np.arctan2(-R[2, 0], np.hypot(R[2, 1], R[2, 2]))
+    az = np.arctan2(R[1, 0], R[0, 0])
+    if max(abs(ax), abs(ay), abs(az)) > cfg.max_camera_angle_diff:
+        log.error("camera orientations differ: %f %f %f", ax, ay, az)
+        return True
+    return False
+
+
+class VicalibEngine:
+    def __init__(self, config: VicalibConfig, update_stats_callback=None,
+                 device=None):
+        for name, asks, item in UNPORTED_FLAGS:
+            if asks(getattr(config, name)):
+                raise NotImplementedError(
+                    f"-{name} is not ported yet; see ROADMAP.md queue 1 "
+                    f"({item})")
+        self.cfg = config
+        self.device = resolve_device(device if device is not None
+                                     else config.device)
+        self.cfg.apply_static_preset()
+        self.update_stats = update_stats_callback or (lambda s: None)
+        self.target = make_grid(config)
+        if config.paused:
+            log.warning("-paused requests an interactive GUI pause; batch "
+                        "replay has no capture loop to pause — ignored")
+        if config.device_serial not in ("-1", ""):
+            log.warning("-device_serial selects a live capture device; "
+                        "replay sources are addressed by URI — ignored")
+        if not config.exit_vicalib_on_finish:
+            log.warning("-noexit_vicalib_on_finish keeps the reference's GUI "
+                        "alive after solving; the batch engine always "
+                        "returns when done")
+
+    def _model_names(self, n_channels):
+        cfg = self.cfg
+        if cfg.model_files:
+            cams = []
+            for path in cfg.model_files.split(","):
+                cams.extend(out_io.read_cameras_xml(path))
+            return [c["model"] for c in cams], cams
+        names = [m for m in cfg.models.split(",") if m]
+        if len(names) < n_channels:
+            log.info("Only %d models declared; assuming poly3 for the rest",
+                     len(names))
+            names += ["poly3"] * (n_channels - len(names))
+        return names[:n_channels], None
+
+    def run(self) -> EngineResult:
+        from .solver import StageFlags, run_staged
+        from .solver.build import build_problem
+        from .solver.lm import LMOptions
+
+        cfg = self.cfg
+        dev = self.device
+        timings = {}
+        if not cfg.cam:
+            raise ValueError("No camera URI given")
+        t0 = time.time()
+        camera = sources.parse_camera_uri(cfg.cam)
+        camera.frame_rate = cfg.frame_rate_hint
+        cfg.calibrate_imu = False
+
+        C = camera.num_channels
+        model_names, preload = self._model_names(C)
+        stats = CalibrationStats(C, status=CalibrationStatus.CAPTURING)
+
+        # ---- frame selection (vicalib-engine.cc:497-555); superframe
+        # association matches channels by nearest stamp to channel 0,
+        # dropping frames any channel misses (vicalib-task.cc:612-678)
+        assoc_times, assoc_sel = sources.associate_channels(
+            camera, system=cfg.use_system_time)
+        if len(assoc_times) < camera.n_frames:
+            log.info("async channels: %d/%d superframes associated",
+                     len(assoc_times), camera.n_frames)
+        sel_times, sel_indices = [], []
+        skipped = 0
+        for k in range(len(assoc_times)):
+            if skipped < cfg.frame_skip:
+                skipped += 1
+                continue
+            skipped = 0
+            sel_times.append(float(assoc_times[k]))
+            sel_indices.append(k)
+            if (cfg.num_vicalib_frames > 0
+                    and len(sel_times) >= cfg.num_vicalib_frames):
+                break
+        if len(sel_times) < 2:
+            raise RuntimeError("not enough usable frames")
+        log.info("selected %d/%d frames", len(sel_times), camera.n_frames)
+        sel_images = [camera.read_batch(
+            c, [int(assoc_sel[c][j]) for j in sel_indices])
+            for c in range(C)]
+        sel_indices = [int(assoc_sel[0][j]) for j in sel_indices]
+        timings["read"] = time.time() - t0
+
+        # ---- detection (vicalib-task.cc:247-368)
+        t0 = time.time()
+        F = len(sel_times)
+        pixels, visible, conic_rows_all = [], [], []
+        for c in range(C):
+            pix, vis, rows = _detect_all(sel_images[c], self.target, cfg,
+                                         dev)
+            pixels.append(pix)
+            visible.append(vis)
+            conic_rows_all.extend(rows)
+            stats.num_frames_processed[c] = int(np.sum(vis.any(axis=1)))
+        pixels = np.stack(pixels)
+        visible = np.stack(visible)
+        timings["detect"] = time.time() - t0
+        if cfg.output_conics:
+            out_io.write_conics_csv("conics.csv", conic_rows_all)
+        if cfg.clip_good:
+            good = visible.any(axis=2).all(axis=0)
+            np.savez_compressed(
+                "good_frames.npz",
+                timestamps=np.asarray(sel_times)[good],
+                frame_indices=np.asarray(sel_indices)[good],
+                **{f"cam{c}": np.stack(sel_images[c])[good]
+                   for c in range(C)})
+            log.info("clip_good: wrote %d/%d frames to good_frames.npz",
+                     int(good.sum()), F)
+
+        # ---- problem assembly + staged solve
+        stats.status = CalibrationStatus.OPTIMIZING
+        self.update_stats(stats.copy())
+        dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+        intr0 = T_ck0 = None
+        if preload is not None:
+            intr0 = [c["params"] for c in preload]
+            T_ck0 = []
+            for c in preload:
+                # the stored pose is T_wc (vision RDF without an IMU)
+                q_wc = quat_np.from_matrix(np.asarray(c["T_wc"])[:3, :3])
+                t_wc = np.asarray(c["T_wc"])[:3, 3]
+                T_ck0.append(quat_np.se3_inverse((q_wc, t_wc)))
+        heights = [img[0].shape[0] for img in sel_images]
+        widths = [img[0].shape[1] for img in sel_images]
+
+        t0 = time.time()
+        data, state = build_problem(
+            model_names, np.asarray(sel_times), pixels, visible,
+            self.target.circles_3d(), widths=widths, heights=heights,
+            dtype=dtype, device=dev, intr0=intr0, T_ck0=T_ck0,
+            use_ransac=True)
+        _sync(dev)
+        timings["build"] = time.time() - t0
+
+        flags = StageFlags(
+            calibrate_imu=False,
+            inertial_active=False,
+            rotation_only=not cfg.has_initial_guess,
+            bias_active=cfg.has_initial_guess,
+            scale_active=cfg.has_initial_guess,
+            optimize_time_offset=cfg.find_time_offset,
+            fix_intrinsics=not cfg.calibrate_intrinsics)
+        options = LMOptions(max_iters=cfg.max_iters,
+                            function_tolerance=cfg.function_tolerance)
+        t0 = time.time()
+        result = run_staged(state, data, flags, options,
+                            do_remove_outliers=cfg.remove_outliers,
+                            outlier_threshold=cfg.outlier_threshold)
+        _sync(dev)
+        timings["solve"] = time.time() - t0
+        state = result.state
+        q_ck = state.q_ck.cpu().numpy()
+        p_ck = state.p_ck.cpu().numpy()
+        intr = state.intr.cpu().numpy()
+
+        # ---- stats + validation (vicalib-task.cc:831-856)
+        stats.total_mse = result.mse
+        stats.reprojection_error = [float(r) for r in result.cam_rmse]
+        stats.num_iterations = result.total_iterations
+        stats.ts = float(state.time_offset)
+        stats.t_ck_vec = [(q_ck[c], p_ck[c]) for c in range(C)]
+        stats.cam_intrinsics = [intr[c] for c in range(C)]
+        success = all(r <= cfg.max_reprojection_error
+                      for r in stats.reprojection_error)
+        if success and cfg.has_initial_guess and preload is not None:
+            for c in range(C):
+                if camera_calibrations_differ(
+                        cfg, model_names[c], intr0[c],
+                        stats.cam_intrinsics[c], T_ck0[c],
+                        stats.t_ck_vec[c]):
+                    success = False
+        stats.status = (CalibrationStatus.SUCCESS if success
+                        else CalibrationStatus.FAILURE)
+        self.update_stats(stats.copy())
+
+        # ---- result log (PrintResults analog, -output_log_file)
+        if cfg.output_log_file:
+            with open(cfg.output_log_file, "w") as f:
+                f.write("-" * 42 + "\n")
+                for c in range(C):
+                    f.write(f"Camera: {c} ({model_names[c]})\n")
+                    f.write("params: %s\n" % np.array2string(
+                        stats.cam_intrinsics[c], precision=9))
+                    T = np.eye(4)
+                    T[:3, :3] = quat_np.to_matrix(stats.t_ck_vec[c][0])
+                    T[:3, 3] = stats.t_ck_vec[c][1]
+                    f.write("T_ck:\n%s\n" % np.array2string(T, precision=9))
+                    f.write(f"rmse: {stats.reprojection_error[c]:.6f} px\n")
+                f.write("mse= %s  iterations= %d\n" %
+                        (stats.total_mse, stats.num_iterations))
+                for row in result.stages_run:
+                    f.write("stage %s: iters=%d cost=%.6e wall=%.2fs\n" %
+                            tuple(row))
+
+        # ---- outputs (vicalib-engine.cc:355-373, 406-422)
+        out_io.write_cameras_xml(
+            cfg.output, model_names, stats.cam_intrinsics, stats.t_ck_vec,
+            widths, heights, calibrate_imu=False)
+        q_wk = state.q_wk.cpu().numpy()
+        t_wk = state.t_wk.cpu().numpy()
+        if cfg.print_poses:
+            good = visible.any(axis=(0, 2))
+            out_io.write_poses_txt("poses.txt", q_wk, t_wk, good=good)
+        if cfg.save_poses:
+            out_io.write_poses_csv("poses.csv", q_wk, t_wk)
+
+        log.info("phase seconds: %s", " ".join(
+            "%s=%.3f" % kv for kv in timings.items()),
+            extra={"timings": dict(timings)})
+        return EngineResult(success=success, stats=stats, state=state,
+                            result=result, model_names=model_names,
+                            timings=timings)

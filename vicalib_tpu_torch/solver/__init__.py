@@ -1,0 +1,10 @@
+from .assemble import ProblemData, assemble, robust_costs  # noqa: F401
+from .lm import LMInfo, LMOptions, LMSolver  # noqa: F401
+from .problem import (  # noqa: F401
+    CalibState, SharedLayout, StageFlags, frame_mask, init_state, retract,
+    shared_mask,
+)
+from .residuals import CameraObs, ImuFactors  # noqa: F401
+from .robust import Cauchy, SoftL1, Trivial  # noqa: F401
+from .schur import schur_solve, tridiag_solve  # noqa: F401
+from .stages import StagedResult, run_staged  # noqa: F401
