@@ -9,8 +9,10 @@ Phases, in order; any failure exits non-zero:
   2. build every CUDA kernel of the main path with nvcc (sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (a 32-frame batch of padded 800x600
-     stereo frames) plus the synthetic edge frames: labels must agree bit
-     for bit; times from CUDA events (median of 12 after warm-up);
+     stereo frames) plus edge cases (synthetic frames, inverted and noise
+     frames, other sweep bounds, one frame): labels must agree bit for bit;
+     times from CUDA events (median of 12 after warm-up), device launches
+     per call from torch.profiler;
   4. the main path at full width: 192 stereo 800x600 frames rendered by the
      port's simulator, written as PGM files and calibrated through
      ``vicalib_tpu_torch.cli.main`` (the linear model, camera-only); the
@@ -37,7 +39,10 @@ import torch
 
 N_FRAMES = 192                 # per camera, as the JAX bench (bench.py:36)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12          # H100 non-tensor 32-bit rate (fp32 peak)
+# H100 SXM non-tensor 32-bit rate for single (non-FMA) operations such as
+# mins, compares and adds: the published 67 TFLOP/s fp32 peak counts an FMA
+# as two operations
+NON_FMA_OPS_PER_S = 33.5e12
 REPLACES = {"threshold_and_label": "vicalib_tpu/detect/pallas_kernels.py:194"}
 SOURCES = {"threshold_and_label": "vicalib_tpu_torch/csrc/threshold_label.cu"}
 
@@ -78,6 +83,19 @@ def time_ms(fn, reps=12, warmup=2):
     return float(np.median(times))
 
 
+def host_time_ms(fn, reps=12):
+    """Median host milliseconds to enqueue fn() (the device drained before
+    each call)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def stereo_config(sim, n_frames):
     """The bench geometry (800x600, target at 0.35 m, orbit 0.12 m) as a
     visual-only stereo rig: cam 0 at the rig origin, cam 1 at -0.12 m y."""
@@ -90,7 +108,10 @@ def stereo_config(sim, n_frames):
 
 
 def edge_frames():
-    """(serpentine that needs more sweeps than the bound, >512 dots)."""
+    """Synthetic frames, each (1, H, W), with the radius to threshold them:
+    a serpentine that needs more sweeps than the bound, >512 dots, 8-bit
+    noise (a dense mask), a diagonal band across many tile borders, and
+    blobs touching all four frame edges and corners."""
     serp = np.full((1, 64, 256), 255, np.float32)
     for r in range(4, 60, 3):
         serp[0, r, 4:250] = 0
@@ -100,7 +121,54 @@ def edge_frames():
     for y in range(2, 126, 4):
         for x in range(2, 254, 4):
             dots[0, y:y + 2, x:x + 2] = 0
-    return serp, dots
+    noise = np.random.default_rng(0).integers(
+        0, 256, size=(1, 600, 896)).astype(np.float32)
+    diag = np.full((1, 600, 896), 255, np.float32)
+    for y in range(600):
+        diag[0, y, y + 100:y + 103] = 0
+    edges = np.full((1, 600, 896), 255, np.float32)
+    for x in range(0, 896, 50):
+        edges[0, :5, x:x + 5] = 0
+        edges[0, -5:, x:x + 5] = 0
+    for y in range(0, 600, 50):
+        edges[0, y:y + 5, :5] = 0
+        edges[0, y:y + 5, -5:] = 0
+    edges[0, -5:, -5:] = 0
+    return [("serpentine", serp, 4), (">512 dots", dots, 4),
+            ("noise", noise, 13), ("diagonal", diag, 13),
+            ("edges", edges, 13)]
+
+
+def device_launches(fn):
+    """Device kernels and memsets of one call of fn, from torch.profiler,
+    with their device time by name; None where the profiler records no
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    n = 0
+    for e in prof.key_averages():
+        if e.device_type == cuda:
+            n += e.count
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            log("  device %9.4f ms %3d x  %s" % (t / 1e3, e.count,
+                                                 e.key[:80]))
+    return n or None
+
+
+def active_tile_share(mask, tile):
+    """Share of the kernel's tiles whose pixels hold any mask."""
+    ty, tx = tile
+    B, H, W = mask.shape
+    m = torch.nn.functional.pad(mask, (0, -W % tx, 0, -H % ty))
+    m = m.reshape(B, m.shape[1] // ty, ty, W // tx, tx)
+    return float(m.any(dim=4).any(dim=2).float().mean())
 
 
 def kernel_phase(dev):
@@ -121,41 +189,58 @@ def kernel_phase(dev):
     kw = dict(at_threshold=0.9, black_on_white=True, n_iters=64,
               max_labels=512)
 
-    _, lab_k = kernels.threshold_and_label(padded, radius, **kw)
+    mask_k, lab_k = kernels.threshold_and_label(padded, radius, **kw)
     torch.cuda.synchronize()
-    _, lab_p, sweeps = kernels.threshold_and_label_ref(
+    mask_p, lab_p, sweeps = kernels.threshold_and_label_ref(
         padded, radius, return_sweeps=True, **kw)
-    mism = int((lab_k != lab_p).sum())
+    mism = int((lab_k != lab_p).sum()) + int((mask_k != mask_p).sum())
     err = int((lab_k.to(torch.int64) - lab_p.to(torch.int64)).abs().max())
-    log("threshold_and_label %s: %d mismatching labels, %d labelled px, "
-        "sweeps per frame (label, compact) max %s"
+    log("threshold_and_label %s: %d mismatching labels or mask px, %d "
+        "labelled px, sweeps per frame (label, compact) max %s"
         % (tuple(padded.shape), mism, int((lab_p > 0).sum()),
            sweeps.max(dim=0).values.tolist()))
     if mism:
         fail("kernel labels differ from the plain version")
-    for name, fr in zip(("serpentine", ">512 dots"), edge_frames()):
-        t = torch.from_numpy(fr).to(dev)
-        _, a = kernels.threshold_and_label(t, 4, **kw)
-        _, b = kernels.threshold_and_label_ref(t, 4, **kw)
+    cases = [(name, torch.from_numpy(fr).to(dev), r, kw)
+             for name, fr, r in edge_frames()]
+    cases += [("inverted batch", (255 - padded).contiguous(), radius,
+               dict(kw, black_on_white=False)),
+              ("n_iters=5", padded, radius, dict(kw, n_iters=5)),
+              ("n_iters=0", padded, radius, dict(kw, n_iters=0)),
+              ("B=1", padded[:1].contiguous(), radius, kw)]
+    for name, t, r, kw_c in cases:
+        ma, a = kernels.threshold_and_label(t, r, **kw_c)
+        mb, b, sw = kernels.threshold_and_label_ref(t, r, return_sweeps=True,
+                                                    **kw_c)
         torch.cuda.synchronize()
-        n = int((a != b).sum())
-        log("edge frame %s: %d mismatching labels" % (name, n))
+        n = int((a != b).sum()) + int((ma != mb).sum())
+        log("edge case %s %s: %d mismatching labels or mask px, %d "
+            "labelled px, max "
+            "label %d, max sweeps %s" % (name, tuple(t.shape), n,
+                                    int((b > 0).sum()), int(b.max()),
+                                    sw.max(dim=0).values.tolist()))
         if n:
             fail("kernel differs from the plain version on " + name)
         mism += n
 
-    ms = time_ms(lambda: kernels.threshold_and_label(padded, radius, **kw))
+    call = lambda: kernels.threshold_and_label(padded, radius, **kw)
+    ms = time_ms(call)
+    host_ms = host_time_ms(call)
     plain_ms = time_ms(
         lambda: kernels.threshold_and_label_ref(padded, radius, **kw))
+    n_dev = device_launches(call)
+    mask = lab_p > 0
+    tiles = active_tile_share(mask, kernels.tile_config()[:2])
     B, H, W = padded.shape
     npx = B * H * W
     bytes_moved = npx * (4 + 4)            # f32 frames in, int32 labels out
-    # box sums ((2r+1) adds per axis), mean/threshold (3), rank scan (2),
-    # and 9 ops (8 mins + compare) per pixel for each sweep the data needs
-    ops = npx * (2 * (2 * radius + 1) + 3 + 2) \
-        + int(sweeps.sum()) * H * W * 9
+    # per pixel: box sums as an integral image (4 adds), mean and threshold
+    # (3), rank scan (2); per masked pixel 9 (8 mins + compare) for each
+    # sweep its frame executes
+    masked = mask.flatten(1).sum(dim=1).cpu()
+    ops = npx * (4 + 3 + 2) + int((sweeps.sum(dim=1).cpu() * masked).sum()) * 9
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT_OPS_PER_S * 1e3
+    ops_ms = ops / NON_FMA_OPS_PER_S * 1e3
     row = {"name": "threshold_and_label", "route": "cuda",
            "source": SOURCES["threshold_and_label"],
            "replaces": REPLACES["threshold_and_label"],
@@ -165,9 +250,14 @@ def kernel_phase(dev):
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
            "library_ms": None, "shape": [B, H, W],
-           "sweeps": int(sweeps.sum())}
-    log("kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-        % (ms, plain_ms, row["bound_ms"], row["bound_by"]))
+           "sweeps": int(sweeps.sum()), "masked_px": int(masked.sum()),
+           "host_ms": host_ms, "device_launches_per_call": n_dev,
+           "active_tile_share": tiles,
+           "tile_config": list(kernels.tile_config())}
+    log("kernel %.4f ms (host enqueue %.4f ms), plain %.4f ms, bound %.4f "
+        "ms (%s); %s device launches per call; %.4f of tiles active"
+        % (ms, host_ms, plain_ms, row["bound_ms"], row["bound_by"], n_dev,
+           tiles))
     return [row]
 
 

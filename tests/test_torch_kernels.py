@@ -7,12 +7,17 @@ exact in both).  Two synthetic frames pin the semantics: a serpentine
 component that needs more than the 64-sweep bound (its labels must match
 the bounded reference, several labels per component), and a frame with more
 than 512 dots (the overflow ids must be 0).  The CUDA kernel itself is held
-to this plain version on the card by chip_smoke.py.
+to this plain version on the card by chip_smoke.py; its sweep schedule
+(chunks of K Jacobi steps on tiles with a K-pixel halo) is mirrored here in
+PyTorch and held to one sweep at a time bit for bit.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vicalib_tpu.detect.conics import _pad_to_tiles as j_pad
 from vicalib_tpu.detect.image_proc import adaptive_threshold as j_at
@@ -112,7 +117,7 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "unpadded", "noncontiguous",
-                                 "rank", "too_wide"])
+                                 "rank", "too_wide", "radius"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     img = torch.from_numpy(_many_dots())
     if bad == "dtype":
@@ -123,11 +128,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         img = torch.from_numpy(np.ascontiguousarray(
             np.concatenate([_many_dots()] * 2, axis=2)))[:, :, ::2]
     elif bad == "too_wide":
-        img = torch.full((1, 8, kernels._MAX_WIDTH + 128), 255.0)
-    else:
+        # more pixels than int32 labels index; never allocated
+        img = torch.empty((1, 8, 2 ** 28 + 128), device="meta")
+    elif bad == "rank":
         img = img[0]
     with pytest.raises((TypeError, ValueError)):
-        kernels.threshold_and_label(img, 4)
+        kernels.threshold_and_label(
+            img, kernels._MAX_RADIUS + 1 if bad == "radius" else 4)
 
 
 def test_engine_default_device_raises_without_cuda(monkeypatch):
@@ -142,3 +149,74 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
         VicalibEngine(VicalibConfig(cam="file:///nowhere/*.pgm"))
     with pytest.raises(RuntimeError, match="cuda"):
         find_conics_batch(_many_dots())
+
+
+# ------------------------------------------------- the kernel's schedule
+def _chunked_propagate(labels, mask, n_iters, k, tile):
+    """The CUDA kernel's sweep schedule in PyTorch.  Chunks of k Jacobi steps
+    (the last one the remainder of n_iters), each on (ty, tx) tiles extended
+    by a k-pixel halo in which unmasked and out-of-frame pixels read as
+    INT_MAX; only the masked interior is written back.  Tiles without mask
+    are skipped, the buffers hold junk at unmasked pixels, and a frame whose
+    chunk changed no interior pixel in its last step runs no more chunks."""
+    B, H, W = labels.shape
+    ty, tx = tile
+    nty, ntx = -(-H // ty), -(-W // tx)
+    ey, ex = ty + 2 * k, tx + 2 * k
+    pad = (k, k + ntx * tx - W, k, k + nty * ty - H)
+
+    def tiles(x, value):                   # (B, nty, ntx, ey, ex) views
+        return F.pad(x, pad, value=value).unfold(1, ey, ty).unfold(2, ex, tx)
+
+    ext_mask = tiles(mask.to(torch.int32), 0).bool()
+    inner_mask = ext_mask[..., k:k + ty, k:k + tx]
+    has_mask = inner_mask.flatten(3).any(-1)
+    junk = torch.randint(-2 ** 31, 2 ** 31 - 1, labels.shape,
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+    state = torch.where(mask, labels, junk)
+    running = torch.ones(B, dtype=torch.bool)
+    for c in range(-(-n_iters // k)):
+        steps = min(k, n_iters - c * k)
+        sel = has_mask & running[:, None, None]
+        x = tiles(torch.where(mask, state, kernels.BIG), kernels.BIG)[sel]
+        m = ext_mask[sel]
+        for _ in range(steps):
+            prev, x = x, kernels._sweep(x, m)
+        inner = (slice(None), slice(k, k + ty), slice(k, k + tx))
+        mi = m[inner]
+        out = (F.pad(state, (0, ntx * tx - W, 0, nty * ty - H))
+               .reshape(B, nty, ty, ntx, tx).permute(0, 1, 3, 2, 4).clone())
+        out[sel] = torch.where(mi, x[inner], out[sel])
+        state = out.permute(0, 1, 3, 2, 4).reshape(B, nty * ty,
+                                                   ntx * tx)[:, :H, :W]
+        changed = ((x[inner] != prev[inner]) & mi).flatten(1).any(1)
+        running = torch.zeros(B, dtype=torch.bool).index_put(
+            (sel.nonzero()[:, 0][changed],), torch.tensor(True))
+    return torch.where(mask, state, kernels.BIG)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_frame(name):
+    if name == "rendered":
+        padded, H, W = j_pad(jnp.asarray(_rendered(), jnp.float32))
+        return (torch.from_numpy(np.array(padded)),
+                max(int(W / 30.0 / 2), 1))
+    return torch.from_numpy({"serpentine": _serpentine,
+                             "many_dots": _many_dots}[name]()), 4
+
+
+@pytest.mark.parametrize("tile", [(24, 80), (13, 40)])
+@pytest.mark.parametrize("frame", ["serpentine", "many_dots", "rendered"])
+@pytest.mark.parametrize("n_iters", [0, 7, 64])
+@pytest.mark.parametrize("k", [1, 5, 8, 16, 64, 100])
+def test_chunk_schedule_equals_one_sweep_at_a_time(k, n_iters, frame, tile,
+                                                    monkeypatch):
+    """Both bounded phases (labels, then compact ids) run in the kernel's
+    chunk schedule give the labels of one global sweep at a time."""
+    imgs, radius = _schedule_frame(frame)
+    _, want = kernels.threshold_and_label_ref(imgs, radius, n_iters=n_iters)
+    monkeypatch.setattr(kernels, "_propagate", lambda lab, m, n: (
+        _chunked_propagate(lab, m, n, k, tile), None))
+    _, got = kernels.threshold_and_label_ref(imgs, radius, n_iters=n_iters)
+    assert torch.equal(got, want)

@@ -22,7 +22,11 @@ pixel that the bound leaves unreached keeps INT_MAX, as in the reference.
 takes ``threshold_and_label_ref``, a CUDA tensor launches the kernel in
 ``csrc/threshold_label.cu`` (built with nvcc for sm_90a on first use) or
 raises.  The window sums are taken of the pixel values truncated to int32,
-so the result equals the reference bit for bit on 8-bit frames.
+so the result equals the reference bit for bit on 8-bit frames.  The
+kernel runs the bounded sweeps of (c) and (d) as chunks of several Jacobi
+steps per launch on tiles with a halo as wide as the chunk;
+``tests/test_torch_kernels.py`` mirrors that schedule in PyTorch and holds
+it to one sweep at a time bit for bit.
 """
 from __future__ import annotations
 
@@ -43,9 +47,11 @@ LAUNCHES = {"threshold_and_label": 0}
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "threshold_label.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-# the window-sum kernel keeps one row of int32 column sums in the 48 KB of
-# shared memory a block gets by default
-_MAX_WIDTH = 48 * 1024 // 4
+# labels are 1-based flat indices in int32, and INT_MAX marks "unlabelled"
+_MAX_PIXELS = BIG - 1
+# the threshold pass keeps 32 rows of (128 + 2r) | 1 int32 column sums in the
+# 48 KB of shared memory a block gets by default
+_MAX_RADIUS = 127
 
 _lib = None
 _lock = threading.Lock()
@@ -82,12 +88,23 @@ def build(verbose=False):
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         fn = lib.vt_threshold_and_label
-        fn.argtypes = ([ctypes.c_void_p] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 5 + [ctypes.c_float]
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        cfg = (ctypes.c_int * 3)()
+        lib.vt_tile_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.vt_tile_config.restype = None
+        lib.vt_tile_config(cfg)
+        lib.tile_config = tuple(cfg)
         _lib = lib
         return lib
+
+
+def tile_config():
+    """(tile rows, tile columns, Jacobi steps per launch) of the built
+    kernel."""
+    return build().tile_config
 
 
 def _check(imgs, radius, n_iters, max_labels):
@@ -105,13 +122,14 @@ def _check(imgs, radius, n_iters, max_labels):
                          % (H, W))
     if not imgs.is_contiguous():
         raise ValueError("imgs must be contiguous")
-    if W > _MAX_WIDTH:
-        raise ValueError("frame width %d above the kernel's %d" % (
-            W, _MAX_WIDTH))
+    if H * W > _MAX_PIXELS:
+        raise ValueError("a %dx%d frame has more pixels than int32 labels "
+                         "can index (%d)" % (H, W, _MAX_PIXELS))
     if B > 65535:
         raise ValueError("at most 65535 frames per call")
-    if radius < 1 or n_iters < 0 or max_labels < 0:
-        raise ValueError("radius >= 1, n_iters >= 0, max_labels >= 0")
+    if not 1 <= radius <= _MAX_RADIUS or n_iters < 0 or max_labels < 0:
+        raise ValueError("1 <= radius <= %d, n_iters >= 0, max_labels >= 0"
+                         % _MAX_RADIUS)
 
 
 def threshold_and_label(imgs, radius, at_threshold=0.9, black_on_white=True,
@@ -127,16 +145,23 @@ def threshold_and_label(imgs, radius, at_threshold=0.9, black_on_white=True,
                                        black_on_white, n_iters, max_labels)
     if imgs.device.type != "cuda":
         raise ValueError("no kernel for device %s" % imgs.device)
+    if imgs.data_ptr() % 16:
+        raise ValueError("imgs must start on a 16-byte boundary")
     lib = build()
+    ty, tx, steps = lib.tile_config
     B, H, W = imgs.shape
     dev = imgs.device
     out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    buf0 = torch.empty_like(out)
-    buf1 = torch.empty_like(out)
     mask = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-    row_cnt = torch.empty((B, H), dtype=torch.int32, device=dev)
-    flags = torch.empty((2 * max(n_iters, 1), B), dtype=torch.int32,
-                        device=dev)
+    # int32 scratch in one allocation: two label buffers, the list of active
+    # tiles, representatives per row, and flags (per chunk of each phase a
+    # "changed" row, each phase's result buffer per frame, the count of
+    # active tiles)
+    n = B * H * W
+    sizes = [n, n, B * -(-H // ty) * (W // tx), B * H,
+             (2 * -(-n_iters // steps) + 2) * B + 1]
+    buf0, buf1, active_tiles, row_cnt, flags = torch.empty(
+        sum(sizes), dtype=torch.int32, device=dev).split(sizes)
     # the threshold factor is rounded to float32 as the reference does:
     # 2 - t is formed in double first, then rounded
     factor = at_threshold if black_on_white else 2.0 - at_threshold
@@ -144,15 +169,16 @@ def threshold_and_label(imgs, radius, at_threshold=0.9, black_on_white=True,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vt_threshold_and_label(
             imgs.data_ptr(), out.data_ptr(), buf0.data_ptr(),
-            buf1.data_ptr(), mask.data_ptr(), row_cnt.data_ptr(),
-            flags.data_ptr(), B, H, W, int(radius), int(n_iters),
-            ctypes.c_float(factor), int(bool(black_on_white)),
+            buf1.data_ptr(), mask.data_ptr(), active_tiles.data_ptr(),
+            row_cnt.data_ptr(), flags.data_ptr(), B, H, W, int(radius),
+            int(n_iters), ctypes.c_float(factor), int(bool(black_on_white)),
             int(max_labels), stream)
     if err != 0:
         raise RuntimeError("threshold_and_label kernel failed: CUDA error "
                            "%d" % err)
     LAUNCHES["threshold_and_label"] += 1
-    return out > 0, out
+    # the kernel leaves out > 0 in the mask buffer
+    return mask.view(torch.bool), out
 
 
 # ----------------------------------------------------------------- plain
