@@ -13,12 +13,24 @@ Phases, in order; any failure exits non-zero:
      frames, other sweep bounds, one frame): labels must agree bit for bit;
      times from CUDA events (median of 12 after warm-up), device launches
      per call from torch.profiler;
-  4. the main path at full width: 192 stereo 800x600 frames rendered by the
-     port's simulator, written as PGM files and calibrated through
+  4. the visual path at full width: 192 stereo 800x600 frames rendered by
+     the port's simulator, written as PGM files and calibrated through
      ``vicalib_tpu_torch.cli.main`` (the linear model, camera-only); the
      cameras.xml it writes is held to the simulator's ground truth and the
      kernel's launch count must have risen during this phase;
-  5. the ``kernels`` JSON line, the nvidia-smi line and, last, the result.
+  5. the visual-inertial path at full width: the JAX package's VI workload
+     (bench.py:626-713, 482-623) — 192 stereo 800x600 frames with the RDF
+     camera-IMU rotation, a 100 Hz IMU with gyro and accel biases and a
+     4 ms time offset — written as PGM files plus accel.txt / gyro.txt /
+     timestamp.txt and calibrated through ``cli.main`` with ``-imu``: the
+     whole staged schedule (visual, inertial-rotation, inertial-full,
+     inertial-full+scale).  Gates: every camera's T_ck within 1e-3
+     (|se3.log(T_est T_true^-1)|, read from the log file), rmse < 0.12 px,
+     intrinsics within 0.5 px, |ts - 0.004| < 2e-3 s, and the kernel
+     launched during the phase.  Prints the stage table (iterations, cost,
+     wall time), the biases and the phase seconds; with ``--profile`` also
+     the device's busy share and top kernels of the VI run;
+  6. the ``kernels`` JSON line, the nvidia-smi line and, last, the result.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -43,6 +55,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 # mins, compares and adds: the published 67 TFLOP/s fp32 peak counts an FMA
 # as two operations
 NON_FMA_OPS_PER_S = 33.5e12
+# the JAX package's VI workload (bench.py:639-643, 155)
+VI_GYRO_BIAS = np.array([0.01, -0.02, 0.015])
+VI_ACCEL_BIAS = np.array([0.05, 0.02, -0.04])
+VI_TIME_OFFSET = 0.004
 REPLACES = {"threshold_and_label": "vicalib_tpu/detect/pallas_kernels.py:194"}
 SOURCES = {"threshold_and_label": "vicalib_tpu_torch/csrc/threshold_label.cu"}
 
@@ -105,6 +121,57 @@ def stereo_config(sim, n_frames):
     cfg.cameras[1].T_ck = (np.array([0.0, 0.0, 0.0, 1.0]),
                            np.array([0.0, -0.12, 0.0]))
     return cfg
+
+
+def vi_config(sim, n_frames):
+    """The JAX package's VI workload: the bench geometry with the stereo
+    VI rig as the simulator defines it (both cameras at the RDF rotation
+    from the IMU, cam 1 at -0.12 m y), 100 Hz IMU, biases, 4 ms offset."""
+    return sim.default_stereo_vi_config(
+        n_frames=n_frames, model="linear", distance=0.35, orbit_radius=0.12,
+        imu_rate=100.0, gyro_bias=VI_GYRO_BIAS, accel_bias=VI_ACCEL_BIAS,
+        time_offset=VI_TIME_OFFSET)
+
+
+def write_rig(sim, sources, data, root, dev, imu=False):
+    """Render every camera into <root>/cam<c>/f*.pgm with a timestamps.txt
+    per directory and, with ``imu``, the IMU stream into <root>/imu.
+    Returns the camera directories."""
+    dirs = []
+    for c in range(len(data.config.cameras)):
+        d = os.path.join(root, "cam%d" % c)
+        os.makedirs(d)
+        for k, img in enumerate(sim.render_frames(data, cam=c, device=dev)):
+            sources.write_pgm(os.path.join(d, "f%05d.pgm" % k), img)
+        np.savetxt(os.path.join(d, "timestamps.txt"), data.frame_times)
+        dirs.append(d)
+    if imu:
+        d = os.path.join(root, "imu")
+        os.makedirs(d)
+        np.savetxt(os.path.join(d, "accel.txt"), data.accel)
+        np.savetxt(os.path.join(d, "gyro.txt"), data.gyro)
+        np.savetxt(os.path.join(d, "timestamp.txt"), data.imu_times)
+    return dirs
+
+
+def parse_log(path):
+    """The result log of ``-output_log_file``: per camera T_ck (4x4) and
+    rmse, then bw_ba, ts and the stage rows."""
+    with open(path) as f:
+        text = f.read()
+    nums = lambda s: np.array([float(x) for x in
+                               re.findall(r"[-+0-9.eE]+", s)])
+    out = {"T_ck": [nums(b).reshape(4, 4) for b in re.findall(
+        r"T_ck:\n(\[\[.*?\]\])", text, re.S)],
+        "rmse": [float(x) for x in re.findall(r"rmse: ([0-9.eE+-]+) px",
+                                              text)],
+        "stages": re.findall(
+            r"stage (\S+): iters=(\d+) cost=(\S+) wall=([0-9.]+)s", text)}
+    m = re.search(r"bw_ba= (\[.*?\])", text, re.S)
+    out["bw_ba"] = nums(m.group(1)) if m else None
+    m = re.search(r"ts= (\S+)", text)
+    out["ts"] = float(m.group(1)) if m else None
+    return out
 
 
 def edge_frames():
@@ -295,10 +362,63 @@ def _device_profile(prof, wall_s, top=15):
         log("  %9.3f ms %6d x  %s" % (ms, n, key[:90]))
 
 
-def main_path_phase(dev, n_frames, profile=False):
+def run_cli(dev, argv, profile=False):
+    """One ``cli.main`` run with every kernel count set to 0 just before it
+    and read just after; under ``profile`` also the device profile."""
     from vicalib_tpu_torch import cli
     from vicalib_tpu_torch.detect import kernels
+
+    cap = _Capture()
+    eng_log = logging.getLogger("vicalib_tpu_torch.engine")
+    eng_log.addHandler(cap)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.time()
+    rc = cli.main(argv, device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        _device_profile(prof, wall)
+    eng_log.removeHandler(cap)
+    log("cli.main rc=%d in %.2f s; phase seconds %s; launches %s"
+        % (rc, wall, cap.timings, launches))
+    if rc != 0:
+        fail("cli.main returned %d" % rc)
+    for k, n in launches.items():
+        if n <= 0:
+            fail("kernel %s was not launched on this path" % k)
+    return launches, cap.timings, wall
+
+
+def check_intrinsics(cams, cfg):
+    for c in range(len(cfg.cameras)):
+        dp = np.abs(cams[c]["params"] - cfg.cameras[c].params[:4])
+        log("cam %d params %s (truth %s) |d| max %.4g px"
+            % (c, np.round(cams[c]["params"], 4), cfg.cameras[c].params[:4],
+               dp.max()))
+        if not np.all(np.isfinite(cams[c]["params"])) or dp.max() > 0.5:
+            fail("cam %d intrinsics off by more than 0.5 px" % c)
+
+
+def se3_err(a, b):
+    """|se3.log(a b^-1)| of two (q, t) poses."""
     from vicalib_tpu_torch.geometry import quat_np, se3
+    e = quat_np.se3_mul(a, quat_np.se3_inverse(b))
+    return float(torch.linalg.norm(se3.log(
+        (torch.as_tensor(e[0]), torch.as_tensor(e[1])))))
+
+
+def main_path_phase(dev, n_frames, profile=False):
+    """The visual path: camera-only stereo calibration through cli.main."""
+    from vicalib_tpu_torch.geometry import quat_np
     from vicalib_tpu_torch.io import sim, sources
     from vicalib_tpu_torch.io.outputs import read_cameras_xml
 
@@ -306,14 +426,7 @@ def main_path_phase(dev, n_frames, profile=False):
     with tempfile.TemporaryDirectory(prefix="vicalib_smoke_") as root:
         t0 = time.time()
         data = sim.simulate(cfg, device=dev)
-        dirs = []
-        for c in range(2):
-            d = os.path.join(root, "cam%d" % c)
-            os.makedirs(d)
-            for k, img in enumerate(sim.render_frames(data, cam=c,
-                                                      device=dev)):
-                sources.write_pgm(os.path.join(d, "f%05d.pgm" % k), img)
-            dirs.append(d)
+        dirs = write_rig(sim, sources, data, root, dev)
         log("rendered and wrote %d x 2 frames in %.2f s"
             % (n_frames, time.time() - t0))
         xml = os.path.join(root, "cameras.xml")
@@ -322,45 +435,12 @@ def main_path_phase(dev, n_frames, profile=False):
                 "-cam", "file://[%s/*.pgm,%s/*.pgm]" % tuple(dirs),
                 "-nouse_only_when_static", "-output", xml,
                 "-output_log_file", logf]
-        cap = _Capture()
-        logging.getLogger("vicalib_tpu_torch.engine").addHandler(cap)
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
-        prof = None
-        if profile:
-            from torch.profiler import ProfilerActivity
-            prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                      ProfilerActivity.CUDA])
-            prof.__enter__()
-        t0 = time.time()
-        rc = cli.main(argv, device=str(dev))
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        wall = time.time() - t0
-        if prof is not None:
-            prof.__exit__(None, None, None)
-            _device_profile(prof, wall)
-        launches = dict(kernels.LAUNCHES)
-        log("cli.main rc=%d in %.2f s; phase seconds %s; launches %s"
-            % (rc, wall, cap.timings, launches))
-        if rc != 0:
-            fail("cli.main returned %d" % rc)
-        for k, n in launches.items():
-            if n <= 0:
-                fail("kernel %s was not launched on the main path" % k)
+        launches, timings, wall = run_cli(dev, argv, profile)
         cams = read_cameras_xml(xml)
-        with open(logf) as f:
-            rmse = [float(x) for x in re.findall(r"rmse: ([0-9.eE+-]+) px",
-                                                 f.read())]
+        rmse = parse_log(logf)["rmse"]
     if len(cams) != 2 or len(rmse) != 2:
         fail("expected 2 cameras in cameras.xml and the log")
-    for c in range(2):
-        dp = np.abs(cams[c]["params"] - cfg.cameras[c].params[:4])
-        log("cam %d params %s (truth %s) |d| max %.4g px"
-            % (c, np.round(cams[c]["params"], 4), cfg.cameras[c].params[:4],
-               dp.max()))
-        if not np.all(np.isfinite(cams[c]["params"])) or dp.max() > 0.5:
-            fail("cam %d intrinsics off by more than 0.5 px" % c)
+    check_intrinsics(cams, cfg)
     # T_ck = T_wc^-1 (vision RDF); cam 1 relative to cam 0 vs the truth
     T = []
     for c in range(2):
@@ -368,17 +448,70 @@ def main_path_phase(dev, n_frames, profile=False):
         T.append(quat_np.se3_inverse((q_wc, cams[c]["T_wc"][:3, 3])))
     rel = quat_np.se3_mul(T[1], quat_np.se3_inverse(T[0]))
     q_t, t_t = cfg.cameras[1].T_ck
-    e = quat_np.se3_mul(rel, quat_np.se3_inverse((np.asarray(q_t),
-                                                  np.asarray(t_t))))
-    err = float(torch.linalg.norm(se3.log(
-        (torch.as_tensor(e[0]), torch.as_tensor(e[1])))))
+    err = se3_err(rel, (np.asarray(q_t), np.asarray(t_t)))
     log("cam 1 extrinsic error %.3e (gate 1e-3), rmse %s px (gate 0.12)"
         % (err, rmse))
     if not err < 1e-3:
         fail("cam 1 extrinsic error %.3e above 1e-3" % err)
     if not max(rmse) < 0.12:
         fail("rmse %s above 0.12 px" % rmse)
-    return launches, cap.timings, wall, rmse, err
+    return launches, timings, wall, rmse, err
+
+
+def vi_phase(dev, n_frames, profile=False):
+    """The visual-inertial path: images + IMU CSV through cli.main -imu."""
+    from vicalib_tpu_torch.geometry import quat_np
+    from vicalib_tpu_torch.io import sim, sources
+    from vicalib_tpu_torch.io.outputs import read_cameras_xml
+
+    cfg = vi_config(sim, n_frames)
+    with tempfile.TemporaryDirectory(prefix="vicalib_smoke_vi_") as root:
+        t0 = time.time()
+        data = sim.simulate(cfg, device=dev)
+        dirs = write_rig(sim, sources, data, root, dev, imu=True)
+        log("rendered and wrote %d x 2 frames and %d IMU samples in %.2f s"
+            % (n_frames, len(data.imu_times), time.time() - t0))
+        xml = os.path.join(root, "cameras.xml")
+        logf = os.path.join(root, "vicalibrator.log")
+        argv = ["-models", "linear,linear",
+                "-cam", "file://[%s/*.pgm,%s/*.pgm]" % tuple(dirs),
+                "-imu", "csv://" + os.path.join(root, "imu"),
+                "-nouse_only_when_static", "-output", xml,
+                "-output_log_file", logf]
+        launches, timings, wall = run_cli(dev, argv, profile)
+        cams = read_cameras_xml(xml)
+        res = parse_log(logf)
+    log("VI stages (name, iterations, cost, wall s):")
+    for row in res["stages"]:
+        log("  %-22s %4s %s %s" % row)
+    log("VI biases bw_ba %s (truth %s %s); ts %.6g s (truth %g)"
+        % (res["bw_ba"], VI_GYRO_BIAS, VI_ACCEL_BIAS, res["ts"],
+           VI_TIME_OFFSET))
+    if len(cams) != 2 or len(res["rmse"]) != 2 or len(res["T_ck"]) != 2:
+        fail("expected 2 cameras in cameras.xml and the log")
+    check_intrinsics(cams, cfg)
+    errs = []
+    for c in range(2):
+        T = res["T_ck"][c]
+        est = (quat_np.from_matrix(T[:3, :3]), T[:3, 3])
+        q_t, t_t = cfg.cameras[c].T_ck
+        errs.append(se3_err(est, (np.asarray(q_t), np.asarray(t_t))))
+    log("VI T_ck errors %s (gate 1e-3), rmse %s px (gate 0.12), "
+        "|ts - %g| = %.3g s (gate 2e-3)"
+        % (["%.3e" % e for e in errs], res["rmse"], VI_TIME_OFFSET,
+           abs(res["ts"] - VI_TIME_OFFSET)))
+    if not max(errs) < 1e-3:
+        fail("VI T_ck error %s above 1e-3" % errs)
+    if not max(res["rmse"]) < 0.12:
+        fail("VI rmse %s above 0.12 px" % res["rmse"])
+    if not abs(res["ts"] - VI_TIME_OFFSET) < 2e-3:
+        fail("VI time offset %.6g not within 2e-3 s of %g"
+             % (res["ts"], VI_TIME_OFFSET))
+    return {"launches": launches, "phase_s": timings, "cli_wall_s": wall,
+            "rmse_px": res["rmse"], "T_ck_err": errs, "ts": res["ts"],
+            "bw_ba": res["bw_ba"].tolist(),
+            "stages": [[n, int(i), float(c), float(w)]
+                       for n, i, c, w in res["stages"]]}
 
 
 def main():
@@ -404,11 +537,16 @@ def main():
     rows = kernel_phase(dev)
     launches, timings, wall, rmse, err = main_path_phase(
         dev, N_FRAMES, profile=args.profile)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-    log("main path: %s" % json.dumps(
+    log("visual path: %s" % json.dumps(
         {"frames_per_camera": N_FRAMES, "cli_wall_s": wall,
          "phase_s": timings, "rmse_px": rmse, "cam1_T_err": err}))
+    vi = vi_phase(dev, N_FRAMES, profile=args.profile)
+    log("VI path: %s" % json.dumps(dict(vi, frames_per_camera=N_FRAMES)))
+    for r in rows:
+        # the newest path's count; every path's count beside it
+        r["launches"] = vi["launches"][r["name"]]
+        r["launches_by_path"] = {"visual": launches[r["name"]],
+                                 "vi": vi["launches"][r["name"]]}
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """vicalib_tpu_torch — the PyTorch/CUDA port of the JAX package vicalib_tpu
 (which stays beside it as the reference).
 
-Camera intrinsics and camera-to-camera extrinsics from images of a dot
-target: detection (adaptive threshold and connected components as a CUDA
-kernel), grid association, planar PnP, and a staged Levenberg-Marquardt
-solve with Schur-complement frame elimination.  Entry points run on the CUDA
+Camera intrinsics, camera-to-IMU extrinsics, IMU biases, scale factors,
+gravity and the camera-IMU time offset from images of a dot target and an
+IMU stream: detection (adaptive threshold and connected components as a
+CUDA kernel), grid association, planar PnP, RK4 IMU preintegration, and a
+staged Levenberg-Marquardt solve with Schur-complement frame elimination.  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``; they never fall back.
 """
 

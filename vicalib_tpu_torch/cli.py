@@ -4,11 +4,12 @@ Reference analog: src/main.cc:13-31 + the gflags inventory.  Accepts both
 ``--flag value`` and gflags-style ``-flag value`` / ``-noflag`` booleans
 (README.md:56's negation convention).
 
-Runs on the CUDA device (the engine raises when there is none).  Camera-only
-for now: ``-imu`` and the other flags of unported parts raise
-NotImplementedError.  Usage example, a stereo rig:
+Runs on the CUDA device (the engine raises when there is none).  Flags of
+parts not ported yet raise NotImplementedError.  Usage example, a stereo
+camera-IMU rig:
   python -m vicalib_tpu_torch.cli -models linear,linear \
-      -cam 'file://[<dir0>/*.pgm,<dir1>/*.pgm]' -nouse_only_when_static
+      -cam 'file://[<dir0>/*.pgm,<dir1>/*.pgm]' -imu 'csv://<imu_dir>' \
+      -nouse_only_when_static
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ _NOT_FLAGS = ("device",)
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vicalib",
-        description="visual calibration on a CUDA device (PyTorch port)",
+        description="visual-inertial calibration on a CUDA device (PyTorch port)",
         prefix_chars="-",
     )
     for f in dataclasses.fields(VicalibConfig):

@@ -12,7 +12,7 @@ import torch
 
 from .solver.assemble import ProblemData
 from .solver.problem import CalibState, SharedLayout
-from .solver.residuals import CameraObs
+from .solver.residuals import CameraObs, ImuFactors
 
 
 def state_from_numpy(d, device, dtype=torch.float64) -> CalibState:
@@ -27,15 +27,26 @@ def state_to_numpy(state: CalibState) -> dict:
 
 def problem_from_numpy(d, device, dtype=torch.float64) -> ProblemData:
     """dict {"model_names", "n_frames", "obs": [per-camera dicts with
-    frame_idx, p_w, p_c, valid, points_per_frame]} -> ProblemData."""
-    obs = []
-    for o in d["obs"]:
-        def T(x, dt=dtype):
-            return torch.as_tensor(np.array(x), device=device).to(dt)
-        obs.append(CameraObs(frame_idx=T(o["frame_idx"], torch.int64),
-                             p_w=T(o["p_w"]), p_c=T(o["p_c"]),
-                             valid=T(o["valid"]),
-                             points_per_frame=o.get("points_per_frame")))
-    return ProblemData(obs=obs, imu=None,
+    frame_idx, p_w, p_c, valid, points_per_frame], "imu": optional dict
+    with the ImuFactors fields (win_times, win_gyro, win_accel, start, end,
+    has_meas, frame_i, consecutive, slack)} -> ProblemData."""
+    def T(x, dt=dtype):
+        return torch.as_tensor(np.array(x), device=device).to(dt)
+
+    obs = [CameraObs(frame_idx=T(o["frame_idx"], torch.int64),
+                     p_w=T(o["p_w"]), p_c=T(o["p_c"]), valid=T(o["valid"]),
+                     points_per_frame=o.get("points_per_frame"))
+           for o in d["obs"]]
+    imu = None
+    if d.get("imu") is not None:
+        m = d["imu"]
+        imu = ImuFactors(
+            win_times=T(m["win_times"]), win_gyro=T(m["win_gyro"]),
+            win_accel=T(m["win_accel"]), start=T(m["start"]),
+            end=T(m["end"]), has_meas=T(m["has_meas"], torch.bool),
+            frame_i=T(m["frame_i"], torch.int64),
+            consecutive=bool(m.get("consecutive", False)),
+            slack=float(m.get("slack", 0.0)))
+    return ProblemData(obs=obs, imu=imu,
                        layout=SharedLayout.create(d["model_names"]),
                        n_frames=int(d["n_frames"]))

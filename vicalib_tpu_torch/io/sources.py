@@ -1,9 +1,10 @@
-"""Data sources: image-file replay — the HAL file-driver equivalent.
+"""Data sources: image-file and CSV-IMU replay — the HAL-driver equivalent.
 
 Cameras come in through HAL-style URIs: ``file://<dir>/images/*.pgm``, and
 multi-channel rigs use one glob per channel, ``file://[glob0,glob1]``, like
-HAL's split-image URIs.  Host code (numpy); the frames go to the device in
-``engine._detect_all``.
+HAL's split-image URIs.  IMU streams come in as ``csv://<dir>``
+(accel.txt / gyro.txt / timestamp.txt).  Host code (numpy); the frames go
+to the device in ``engine._detect_all``.
 
 PGM (P2/P5) parsing is in Python; the native host library (native/), when
 present, decodes PGM batches on a thread pool; PNG/JPG need PIL.
@@ -153,6 +154,48 @@ class CameraSource:
         return [read_image(p) for p in paths]
 
 
+@dataclasses.dataclass
+class ImuSource:
+    """CSV IMU replay: accel.txt / gyro.txt / timestamp.txt in a directory.
+
+    Reference analog: hal::IMU with the csv:// driver (README.md:48,
+    vicalib-engine.cc:136-138).  Each file has one row per sample; accel and
+    gyro rows are 3 values (or 4 with a leading timestamp), timestamp.txt
+    carries the stamps.  A two-column timestamp.txt models the reference's
+    device/system clock pair (ImuMsg::device_time / system_time,
+    vicalib-task.cc:689-691): column 0 is the device clock, column 1 the
+    system clock; ``use_system_time`` selects which one ``times`` exposes.
+    """
+    directory: str
+    use_system_time: bool = False
+
+    def __post_init__(self):
+        d = self.directory
+        accel = np.atleast_2d(np.loadtxt(os.path.join(d, "accel.txt"),
+                                         delimiter=None))
+        gyro = np.atleast_2d(np.loadtxt(os.path.join(d, "gyro.txt")))
+        ts_path = os.path.join(d, "timestamp.txt")
+        self.device_times = self.system_times = None
+        if os.path.exists(ts_path):
+            ts = np.loadtxt(ts_path)
+            if ts.ndim == 1:
+                self.device_times = self.system_times = ts
+            else:
+                self.device_times = ts[:, 0]
+                self.system_times = ts[:, 1]
+        else:
+            self.device_times = self.system_times = accel[:, 0]
+            accel = accel[:, 1:]
+            gyro = gyro[:, 1:]
+        self.times = (self.system_times if self.use_system_time
+                      else self.device_times)
+        self.accel = accel[:, -3:]
+        self.gyro = gyro[:, -3:]
+        n = min(len(self.times), len(self.accel), len(self.gyro))
+        self.times, self.accel, self.gyro = (
+            self.times[:n], self.accel[:n], self.gyro[:n])
+
+
 def associate_channels(camera, system: bool = False, tol: float = None):
     """Nearest-time superframe association for async multi-camera rigs.
 
@@ -206,3 +249,8 @@ def parse_camera_uri(uri: str) -> CameraSource:
     else:
         globs = [path]
     return CameraSource(globs)
+
+
+def parse_imu_uri(uri: str, use_system_time: bool = False) -> ImuSource:
+    path = uri[len("csv://"):] if uri.startswith("csv://") else uri
+    return ImuSource(path, use_system_time=use_system_time)

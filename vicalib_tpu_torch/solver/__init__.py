@@ -7,4 +7,7 @@ from .problem import (  # noqa: F401
 from .residuals import CameraObs, ImuFactors  # noqa: F401
 from .robust import Cauchy, SoftL1, Trivial  # noqa: F401
 from .schur import schur_solve, tridiag_solve  # noqa: F401
-from .stages import StagedResult, run_staged  # noqa: F401
+from .stages import (  # noqa: F401
+    StagedResult, initialize_gravity, run_staged,
+)
+from .weights import imu_weights  # noqa: F401

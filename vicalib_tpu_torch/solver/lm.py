@@ -7,7 +7,10 @@ damping candidates as one batch, retract, accept/reject with lambda
 adaptation.  The loop is a Python loop over device tensors that reads its
 stop test back to the host once per iteration; a stage ends with one packed
 info vector.  Convergence criteria mirror the reference: function tolerance
-1e-6, gradient-norm early stop at 1e-9, max iterations 200.
+1e-6, gradient-norm early stop at 1e-9, max iterations 200.  The IMU
+covariance whitening (UpdateImuWeights, vicalibrator.h:690-692) is
+recomputed on the device every ``weight_refresh`` iterations; the cadence
+is a branch on the host-side iteration count.
 
 The solve runs with full-precision float32 matmuls (TF32 off for matmuls
 and cuDNN) — reduced-precision passes break the normal equations.
@@ -24,8 +27,8 @@ from torch.func import vmap
 
 from .assemble import ProblemData, assemble, robust_costs
 from .problem import CalibState, retract
-from .residuals import imu_not_ported
 from .schur import schur_solve
+from .weights import imu_weights
 
 log = logging.getLogger("vicalib_tpu_torch.solver")
 
@@ -42,8 +45,14 @@ class LMOptions:
     # lambda: the assembled system is shared; each candidate adds only a
     # structured solve and a cost evaluation.
     lam_factors: tuple = (0.2, 1.0, 30.0)
+    # IMU covariance-whitening refresh cadence (iterations).  The reference
+    # recomputes the weights every Ceres iteration (vicalibrator.h:690-692);
+    # they vary slowly with the state, so refreshing every few iterations
+    # saves the propagation cost.  Set 1 for per-iteration semantics.
+    weight_refresh: int = 4
     # Plateau stop: if the best cost seen does not improve by >= ftol * cost
-    # for this many consecutive iterations, declare convergence.
+    # for this many consecutive iterations, declare convergence.  Spans two
+    # weight-refresh cycles, so refresh-cycle oscillation counts as stalling.
     stall_iters: int = 8
 
 
@@ -135,12 +144,18 @@ def _lm_step(data, state, lam, nu, weight_sqrt, fmask, smask, inertial_scale,
                             pred_b, lams, lam, nu, gf, gs, options)
 
 
-def _get_weights(data, state, seed_weight, use_cov_weights, sigmas):
-    """Whitening weights for this iteration: the seed weight on the camera
-    path.  Covariance reweighting belongs to the IMU path."""
+def _get_weights(data, state, seed_weight, use_cov_weights, sigmas,
+                 carry_weight=None, refresh=True):
+    """Whitening weights for this iteration.
+
+    Covariance propagation runs when ``use_cov_weights`` and ``refresh``
+    (host bools) both hold; otherwise the carried weights (else the seed)
+    are reused."""
     if data.imu is None or sigmas is None:
         return seed_weight
-    imu_not_ported()
+    if use_cov_weights and refresh:
+        return imu_weights(state, data.imu, sigmas[0], sigmas[1])
+    return seed_weight if carry_weight is None else carry_weight
 
 
 def fused_solve(data: ProblemData, state: CalibState, fmask, smask,
@@ -157,9 +172,11 @@ def fused_solve(data: ProblemData, state: CalibState, fmask, smask,
         stall = torch.zeros((), dtype=torch.int64, device=dev)
         it = 0
         done = False
+        W = seed_weight
         while not done and it < options.max_iters:
             W = _get_weights(data, state, seed_weight, use_cov_weights,
-                             sigmas)
+                             sigmas, carry_weight=W,
+                             refresh=it % options.weight_refresh == 0)
             (state, lam_new, nu, cost, trial_cost, accept, gnorm,
              pred_max) = _lm_step(data, state, lam, nu, W, fmask, smask,
                                   inertial_scale, rotation_only, options)
@@ -203,14 +220,18 @@ def materialize_info(raw) -> LMInfo:
                   cam_rmse=cam_rmse, n_residuals=int(np.sum(cam_cnt)))
 
 
+def seed_weights(K, dtype, device):
+    """(K, 9, 9) copies of the I*500 seed weight (vicalibrator.h:616)."""
+    return (torch.eye(9, dtype=dtype, device=device) * 500.0).expand(
+        K, 9, 9).contiguous()
+
+
 class LMSolver:
     """Binds a ProblemData (tensors already on their device) to the LM
     loop."""
 
     def __init__(self, data: ProblemData, options: LMOptions = LMOptions(),
                  sigmas=None):
-        if data.imu is not None:
-            imu_not_ported()
         self.data = data
         self.options = options
         self.sigmas = sigmas
@@ -224,8 +245,9 @@ class LMSolver:
         dev = state.t_wk.device
         if seed_weight is None:
             # the I*500 seed weight (vicalibrator.h:616), one per factor
-            seed_weight = (torch.eye(9, dtype=dtype, device=dev)
-                           * 500.0)[None]
+            K = (self.data.imu.start.shape[0] if self.data.imu is not None
+                 else 1)
+            seed_weight = seed_weights(K, dtype, dev)
         state, raw = fused_solve(
             self.data, state, fmask, smask,
             torch.tensor(inertial_scale, dtype=dtype, device=dev),

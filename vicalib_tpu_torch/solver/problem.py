@@ -76,6 +76,24 @@ class SharedLayout:
     def n_cams(self):
         return len(self.model_names)
 
+    def block_names(self):
+        """(name, start, size) per parameter block, in tangent order — the
+        labels the reference prints with its covariance log
+        (GetSolutionCovariance, vicalibrator.h:802-857)."""
+        blocks = []
+        for c, name in enumerate(self.model_names):
+            blocks.append((f"cam{c}.R_ck", self.cam_rot[c], 3))
+            blocks.append((f"cam{c}.p_ck", self.cam_trans[c], 3))
+            blocks.append((f"cam{c}.intrinsics[{name}]", self.cam_intr[c],
+                           self.n_intr[c]))
+        blocks.append(("gravity(2-angle)", self.g, 2))
+        blocks.append(("gyro_bias", self.biases, 3))
+        blocks.append(("accel_bias", self.biases + 3, 3))
+        blocks.append(("gyro_scale", self.scales, 3))
+        blocks.append(("accel_scale", self.scales + 3, 3))
+        blocks.append(("time_offset", self.time_offset, 1))
+        return blocks
+
 
 @dataclasses.dataclass(frozen=True)
 class StageFlags:
@@ -89,6 +107,9 @@ class StageFlags:
     optimize_time_offset: bool = True
     fix_intrinsics: bool = False
     calibrate_imu: bool = False
+
+    def evolve(self, **kw):
+        return dataclasses.replace(self, **kw)
 
 
 def frame_mask(flags: StageFlags, n_frames: int, dtype, device):

@@ -1,22 +1,24 @@
-"""Batched reprojection residuals and the per-frame Gram assembly (torch).
+"""Batched residuals and Jacobians for the calibration problem (torch).
 
-Reprojection: ``r = project(T_ck * T_wk^-1 * p_w) - p_c``, 2-D, one per
-observation.  The normal-equation blocks come from analytic geometry
-Jacobians; only the camera model's 2-D projection is differentiated, per
-point, with ``torch.func.jacfwd``.
-
-Only the camera half is ported: an IMU factor given to the port raises
-NotImplementedError (ROADMAP, queue 1: the IMU path).
+- Reprojection: ``r = project(T_ck * T_wk^-1 * p_w) - p_c``, 2-D, one per
+  observation.  The normal-equation blocks come from analytic geometry
+  Jacobians; only the camera model's 2-D projection is differentiated, per
+  point, with ``torch.func.jacfwd``.
+- VI factor (SwitchedFullImuCostFunction, ceres-cost-functions.h:379-490):
+  9-D per consecutive-frame pair, see imu.preintegrate.  Its Jacobians are
+  reverse-mode (``torch.func.jacrev``: 9 outputs against 33 tangent
+  inputs) in the tangent space at zero increment, vmapped over factors.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd, jacrev, vmap
 
 from ..cameras import get_model
 from ..geometry import se3, so3
+from ..imu import preintegrate
 from .problem import CalibState
 
 
@@ -37,24 +39,22 @@ class CameraObs:
 
 @dataclasses.dataclass
 class ImuFactors:
-    """Per frame-pair IMU windows.  The type exists so problems keep the
-    reference's shape; the IMU path is not ported yet."""
-    win_times: torch.Tensor
-    win_gyro: torch.Tensor
-    win_accel: torch.Tensor
-    start: torch.Tensor
-    end: torch.Tensor
-    has_meas: torch.Tensor
-    frame_i: torch.Tensor
+    """Per frame-pair IMU windows (see imu.buffer.build_windows).
+
+    Factor k couples frames (frame_i[k], frame_i[k] + 1).  ``consecutive``:
+    frame_i == arange(K) with K == n_frames - 1, which lets assembly place
+    the blocks by shifted concatenation instead of index_add scatters."""
+    win_times: torch.Tensor   # (K, M)
+    win_gyro: torch.Tensor    # (K, M, 3)
+    win_accel: torch.Tensor   # (K, M, 3)
+    start: torch.Tensor       # (K,)
+    end: torch.Tensor         # (K,)
+    has_meas: torch.Tensor    # (K,) bool
+    frame_i: torch.Tensor     # (K,) int64 — first frame of the pair
     consecutive: bool = False
+    # seconds of raw-sample margin each window carries beyond [start, end]
+    # (build_windows slack) — the searchable time-offset range
     slack: float = 0.0
-
-
-def imu_not_ported():
-    raise NotImplementedError(
-        "IMU factors are not ported yet; see ROADMAP.md queue 1 (the IMU "
-        "path: imu/preintegrate, solver/weights and the IMU halves of "
-        "residuals/assemble/build)")
 
 
 def reproj_residuals(state: CalibState, obs: CameraObs, cam: int,
@@ -139,3 +139,76 @@ def reproj_frame_gram_fast(state: CalibState, obs: CameraObs, cam: int,
     J_aug = (J_aug * w[..., None, None]).reshape(F, 2 * P, k + 1)
     G = J_aug.transpose(1, 2) @ J_aug                         # (F,k+1,k+1)
     return s, G
+
+
+# ----------------------------------------------------------------- IMU factors
+def _imu_one(state: CalibState, k_pose1, k_pose2, win_t, win_g, win_a,
+             start, end, has_meas, weight_sqrt, rotation_only,
+             dx1, dx2, dx_g, dx_b, dx_sf, dx_t):
+    """Single IMU factor residual with tangent increments applied."""
+    q1, t1, v1 = k_pose1
+    q2, t2, v2 = k_pose2
+    T1 = se3.retract((q1, t1), dx1[:6])
+    v1 = v1 + dx1[6:9]
+    T2 = se3.retract((q2, t2), dx2[:6])
+    v2 = v2 + dx2[6:9]
+    b = state.biases + dx_b
+    return preintegrate.imu_factor_residual(
+        T1, v1, T2, v2, win_t, win_g, win_a, start, end,
+        state.g_dir + dx_g, b[:3], b[3:], state.scales + dx_sf,
+        state.time_offset + dx_t[0], has_meas, weight_sqrt=weight_sqrt,
+        rotation_only=rotation_only)
+
+
+def _imu_args(state: CalibState, imu: ImuFactors):
+    fi = imu.frame_i
+    pose1 = (state.q_wk[fi], state.t_wk[fi], state.v_w[fi])
+    pose2 = (state.q_wk[fi + 1], state.t_wk[fi + 1], state.v_w[fi + 1])
+    arrs = (imu.win_times, imu.win_gyro, imu.win_accel, imu.start, imu.end,
+            imu.has_meas)
+    return pose1, pose2, arrs
+
+
+def _zero_increments(state):
+    z = state.t_wk.new_zeros
+    return z(9), z(9), z(2), z(6), z(6), z(1)
+
+
+def imu_residuals(state: CalibState, imu: ImuFactors, weight_sqrt,
+                  rotation_only: bool):
+    """(K, 9) residuals for all IMU factors; ``weight_sqrt`` (K, 9, 9)."""
+    pose1, pose2, arrs = _imu_args(state, imu)
+    zeros = _zero_increments(state)
+
+    def one(p1, p2, wt, wg, wa, s, e, h, W):
+        return _imu_one(state, p1, p2, wt, wg, wa, s, e, h, W,
+                        rotation_only, *zeros)
+
+    return vmap(one)(pose1, pose2, *arrs, weight_sqrt)
+
+
+def imu_residuals_and_jacobians(state: CalibState, imu: ImuFactors,
+                                weight_sqrt, rotation_only: bool):
+    """Residuals plus tangent Jacobians for all IMU factors.
+
+    Returns (r (K,9), J1 (K,9,9), J2 (K,9,9), J_sh (K,9,15)) where the shared
+    columns are [g(2), biases(6), scales(6), time_offset(1)].
+    """
+    pose1, pose2, arrs = _imu_args(state, imu)
+    zeros = _zero_increments(state)
+
+    def f(dx1, dx2, dxg, dxb, dxsf, dxt, p1, p2, wt, wg, wa, s, e, h, W):
+        return _imu_one(state, p1, p2, wt, wg, wa, s, e, h, W,
+                        rotation_only, dx1, dx2, dxg, dxb, dxsf, dxt)
+
+    def f_aux(*a):
+        r = f(*a)
+        return r, r
+
+    def one(p1, p2, wt, wg, wa, s, e, h, W):
+        (J1, J2, Jg, Jb, Jsf, Jt), r = jacrev(
+            f_aux, argnums=(0, 1, 2, 3, 4, 5), has_aux=True)(
+            *zeros, p1, p2, wt, wg, wa, s, e, h, W)
+        return r, J1, J2, torch.cat([Jg, Jb, Jsf, Jt], dim=1)
+
+    return vmap(one)(pose1, pose2, *arrs, weight_sqrt)

@@ -152,9 +152,11 @@ def tridiag_solve(D, U, B):
 
 
 def _cholesky_or_nan(A):
-    """Lower Cholesky factor, all NaN when A is not positive definite."""
+    """Lower Cholesky factor(s) of A (..., n, n), all NaN where a matrix is
+    not positive definite."""
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where(info != 0, torch.full_like(L, math.nan), L)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(L, math.nan), L)
 
 
 def schur_solve(D, U, Hfs, Hss, gf, gs, damping=0.0):
