@@ -30,7 +30,24 @@ Phases, in order; any failure exits non-zero:
      launched during the phase.  Prints the stage table (iterations, cost,
      wall time), the biases and the phase seconds; with ``--profile`` also
      the device's busy share and top kernels of the VI run;
-  6. the ``kernels`` JSON line, the nvidia-smi line and, last, the result.
+  6. the live (streaming) path on phase 5's files: ``cli.main`` with
+     ``-stream_chunk 32 -report_file ... -compute_covariance`` — six chunks
+     at capacities 32, 64, 128, 128, 256, 256, each a warm-started re-solve.
+     Phase 5's gates, plus: the report exists and parses as HTML, and the
+     kernel launched.  Prints the chunk table (frames, capacity, LM
+     iterations, cost, wall seconds); with ``--profile`` the run also
+     passes ``-profile_dir`` and the device's busy share of the solve is
+     read from the Chrome trace the engine writes;
+  7. checkpoint and resume on phase 5's files: ``cli.main`` with
+     ``-checkpoint_file``, then again with ``-resume_file``.  Both pass
+     phase 5's gates; the resumed run must start at the saved stage, and the
+     two cameras.xml files must agree within a tenth of the gates;
+  8. the tracker on camera 0's 192 frames (``tracker.main`` with the
+     stream phase's cameras.xml as ``-model_files``): at least 95 % of the
+     frames tracked, every T_gw within 1e-3 rad and 1 mm of the simulator's
+     true camera pose, and one kernel launch per frame;
+  9. the ``kernels`` JSON line (launches per path), the nvidia-smi line
+     and, last, the result.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -329,13 +346,19 @@ def kernel_phase(dev):
 
 
 class _Capture(logging.Handler):
+    """The engine's phase seconds and the streaming calibrator's chunk rows,
+    from the structured extras of their log records."""
+
     def __init__(self):
         super().__init__()
         self.timings = None
+        self.chunks = []
 
     def emit(self, record):
         if hasattr(record, "timings"):
             self.timings = record.timings
+        if hasattr(record, "chunk"):
+            self.chunks.append(record.chunk)
 
 
 def _device_profile(prof, wall_s, top=15):
@@ -362,15 +385,18 @@ def _device_profile(prof, wall_s, top=15):
         log("  %9.3f ms %6d x  %s" % (ms, n, key[:90]))
 
 
-def run_cli(dev, argv, profile=False):
+def run_cli(dev, argv, profile=False, chunks=None):
     """One ``cli.main`` run with every kernel count set to 0 just before it
-    and read just after; under ``profile`` also the device profile."""
+    and read just after; under ``profile`` also the device profile.  The
+    streaming chunk rows are appended to ``chunks`` when it is given."""
     from vicalib_tpu_torch import cli
     from vicalib_tpu_torch.detect import kernels
 
     cap = _Capture()
-    eng_log = logging.getLogger("vicalib_tpu_torch.engine")
-    eng_log.addHandler(cap)
+    loggers = [logging.getLogger("vicalib_tpu_torch.engine"),
+               logging.getLogger("vicalib_tpu_torch.streaming")]
+    for lg in loggers:
+        lg.addHandler(cap)
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     prof = None
@@ -387,7 +413,8 @@ def run_cli(dev, argv, profile=False):
     if prof is not None:
         prof.__exit__(None, None, None)
         _device_profile(prof, wall)
-    eng_log.removeHandler(cap)
+    for lg in loggers:
+        lg.removeHandler(cap)
     log("cli.main rc=%d in %.2f s; phase seconds %s; launches %s"
         % (rc, wall, cap.timings, launches))
     if rc != 0:
@@ -395,6 +422,8 @@ def run_cli(dev, argv, profile=False):
     for k, n in launches.items():
         if n <= 0:
             fail("kernel %s was not launched on this path" % k)
+    if chunks is not None:
+        chunks.extend(cap.chunks)
     return launches, cap.timings, wall
 
 
@@ -458,34 +487,42 @@ def main_path_phase(dev, n_frames, profile=False):
     return launches, timings, wall, rmse, err
 
 
-def vi_phase(dev, n_frames, profile=False):
-    """The visual-inertial path: images + IMU CSV through cli.main -imu."""
-    from vicalib_tpu_torch.geometry import quat_np
+def write_vi_rig(dev, n_frames, root):
+    """Render the VI workload into ``root`` (cam0, cam1, imu); returns the
+    simulator config, its data and the camera directories."""
     from vicalib_tpu_torch.io import sim, sources
-    from vicalib_tpu_torch.io.outputs import read_cameras_xml
 
     cfg = vi_config(sim, n_frames)
-    with tempfile.TemporaryDirectory(prefix="vicalib_smoke_vi_") as root:
-        t0 = time.time()
-        data = sim.simulate(cfg, device=dev)
-        dirs = write_rig(sim, sources, data, root, dev, imu=True)
-        log("rendered and wrote %d x 2 frames and %d IMU samples in %.2f s"
-            % (n_frames, len(data.imu_times), time.time() - t0))
-        xml = os.path.join(root, "cameras.xml")
-        logf = os.path.join(root, "vicalibrator.log")
-        argv = ["-models", "linear,linear",
-                "-cam", "file://[%s/*.pgm,%s/*.pgm]" % tuple(dirs),
-                "-imu", "csv://" + os.path.join(root, "imu"),
-                "-nouse_only_when_static", "-output", xml,
-                "-output_log_file", logf]
-        launches, timings, wall = run_cli(dev, argv, profile)
-        cams = read_cameras_xml(xml)
-        res = parse_log(logf)
-    log("VI stages (name, iterations, cost, wall s):")
+    t0 = time.time()
+    data = sim.simulate(cfg, device=dev)
+    dirs = write_rig(sim, sources, data, root, dev, imu=True)
+    log("rendered and wrote %d x 2 frames and %d IMU samples in %.2f s"
+        % (n_frames, len(data.imu_times), time.time() - t0))
+    return cfg, data, dirs
+
+
+def vi_argv(root, dirs, out):
+    """cli.main flags of the VI workload, writing into directory ``out``."""
+    return ["-models", "linear,linear",
+            "-cam", "file://[%s/*.pgm,%s/*.pgm]" % tuple(dirs),
+            "-imu", "csv://" + os.path.join(root, "imu"),
+            "-nouse_only_when_static",
+            "-output", os.path.join(out, "cameras.xml"),
+            "-output_log_file", os.path.join(out, "vicalibrator.log")]
+
+
+def check_vi(cfg, out, label):
+    """Phase 5's gates on the cameras.xml and result log in ``out``."""
+    from vicalib_tpu_torch.geometry import quat_np
+    from vicalib_tpu_torch.io.outputs import read_cameras_xml
+
+    cams = read_cameras_xml(os.path.join(out, "cameras.xml"))
+    res = parse_log(os.path.join(out, "vicalibrator.log"))
+    log("%s stages (name, iterations, cost, wall s):" % label)
     for row in res["stages"]:
         log("  %-22s %4s %s %s" % row)
-    log("VI biases bw_ba %s (truth %s %s); ts %.6g s (truth %g)"
-        % (res["bw_ba"], VI_GYRO_BIAS, VI_ACCEL_BIAS, res["ts"],
+    log("%s biases bw_ba %s (truth %s %s); ts %.6g s (truth %g)"
+        % (label, res["bw_ba"], VI_GYRO_BIAS, VI_ACCEL_BIAS, res["ts"],
            VI_TIME_OFFSET))
     if len(cams) != 2 or len(res["rmse"]) != 2 or len(res["T_ck"]) != 2:
         fail("expected 2 cameras in cameras.xml and the log")
@@ -496,22 +533,201 @@ def vi_phase(dev, n_frames, profile=False):
         est = (quat_np.from_matrix(T[:3, :3]), T[:3, 3])
         q_t, t_t = cfg.cameras[c].T_ck
         errs.append(se3_err(est, (np.asarray(q_t), np.asarray(t_t))))
-    log("VI T_ck errors %s (gate 1e-3), rmse %s px (gate 0.12), "
+    log("%s T_ck errors %s (gate 1e-3), rmse %s px (gate 0.12), "
         "|ts - %g| = %.3g s (gate 2e-3)"
-        % (["%.3e" % e for e in errs], res["rmse"], VI_TIME_OFFSET,
+        % (label, ["%.3e" % e for e in errs], res["rmse"], VI_TIME_OFFSET,
            abs(res["ts"] - VI_TIME_OFFSET)))
     if not max(errs) < 1e-3:
-        fail("VI T_ck error %s above 1e-3" % errs)
+        fail("%s T_ck error %s above 1e-3" % (label, errs))
     if not max(res["rmse"]) < 0.12:
-        fail("VI rmse %s above 0.12 px" % res["rmse"])
+        fail("%s rmse %s above 0.12 px" % (label, res["rmse"]))
     if not abs(res["ts"] - VI_TIME_OFFSET) < 2e-3:
-        fail("VI time offset %.6g not within 2e-3 s of %g"
-             % (res["ts"], VI_TIME_OFFSET))
+        fail("%s time offset %.6g not within 2e-3 s of %g"
+             % (label, res["ts"], VI_TIME_OFFSET))
+    return cams, res, errs
+
+
+def vi_phase(dev, cfg, root, dirs, profile=False):
+    """The visual-inertial path: images + IMU CSV through cli.main -imu."""
+    out = os.path.join(root, "vi")
+    os.makedirs(out)
+    launches, timings, wall = run_cli(dev, vi_argv(root, dirs, out), profile)
+    _, res, errs = check_vi(cfg, out, "VI")
     return {"launches": launches, "phase_s": timings, "cli_wall_s": wall,
             "rmse_px": res["rmse"], "T_ck_err": errs, "ts": res["ts"],
             "bw_ba": res["bw_ba"].tolist(),
             "stages": [[n, int(i), float(c), float(w)]
                        for n, i, c, w in res["stages"]]}
+
+
+def chrome_trace_busy(path):
+    """Device busy milliseconds (kernels, copies, memsets) and the span of
+    the trace, from a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    t0 = min(e["ts"] for e in spans)
+    t1 = max(e["ts"] + e["dur"] for e in spans)
+    return sum(e["dur"] for e in dev) / 1e3, (t1 - t0) / 1e3, len(dev)
+
+
+def stream_phase(dev, cfg, root, dirs, profile=False):
+    """The live path: cli.main -stream_chunk 32 on phase 5's files."""
+    import html.parser
+
+    out = os.path.join(root, "stream")
+    os.makedirs(out)
+    report = os.path.join(out, "report.html")
+    argv = vi_argv(root, dirs, out) + ["-stream_chunk", "32",
+                                       "-report_file", report,
+                                       "-compute_covariance"]
+    prof_dir = os.path.join(out, "profile")
+    if profile:
+        argv += ["-profile_dir", prof_dir]
+    chunks = []
+    launches, timings, wall = run_cli(dev, argv, chunks=chunks)
+    log("stream chunks (frames, capacity, LM iterations, cost, wall s):")
+    for c in chunks:
+        log("  %4d %4d %4d %.6e %.3f" % (c["n_frames"], c["capacity"],
+                                         c["iterations"], c["cost"],
+                                         c["wall_s"]))
+    if [c["capacity"] for c in chunks] != [32, 64, 128, 128, 256, 256]:
+        fail("stream capacities %s" % [c["capacity"] for c in chunks])
+    _, res, errs = check_vi(cfg, out, "stream")
+    with open(report) as f:
+        text = f.read()
+    parser = html.parser.HTMLParser()
+    parser.feed(text)
+    parser.close()
+    if not (text.startswith("<!doctype html>") and text.rstrip().endswith(
+            "</html>") and "standard deviations" in text):
+        fail("the stream report is not the expected HTML")
+    log("stream report: %d bytes of HTML" % len(text))
+    busy = None
+    if profile:
+        traces = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)]
+        if len(traces) != 1:
+            fail("expected one -profile_dir trace, found %s" % traces)
+        busy_ms, span_ms, n_ev = chrome_trace_busy(traces[0])
+        busy = {"busy_ms": busy_ms, "span_ms": span_ms, "events": n_ev,
+                "share": busy_ms / span_ms}
+        log("stream -profile_dir trace %s: device busy %.1f ms of %.1f ms "
+            "(%.1f%%), %d device events" % (traces[0], busy_ms, span_ms,
+                                             100.0 * busy_ms / span_ms,
+                                             n_ev))
+    return {"launches": launches, "phase_s": timings, "cli_wall_s": wall,
+            "chunks": chunks, "rmse_px": res["rmse"], "T_ck_err": errs,
+            "ts": res["ts"], "bw_ba": res["bw_ba"].tolist(),
+            "profile_trace": busy,
+            "xml": os.path.join(out, "cameras.xml")}
+
+
+def resume_phase(dev, cfg, root, dirs):
+    """-checkpoint_file, then -resume_file from that checkpoint."""
+    from vicalib_tpu_torch.io.outputs import read_cameras_xml
+
+    outs = [os.path.join(root, n) for n in ("ckpt", "resumed")]
+    ckpt = os.path.join(outs[0], "state.npz")
+    runs = []
+    for out, extra in zip(outs, (["-checkpoint_file", ckpt],
+                                 ["-resume_file", ckpt])):
+        os.makedirs(out)
+        launches, timings, wall = run_cli(dev, vi_argv(root, dirs, out)
+                                          + extra)
+        _, res, errs = check_vi(cfg, out, os.path.basename(out))
+        runs.append({"launches": launches, "phase_s": timings,
+                     "cli_wall_s": wall, "T_ck_err": errs, "ts": res["ts"],
+                     "stages": [[n, int(i), float(c), float(w)]
+                                for n, i, c, w in res["stages"]]})
+    with open(ckpt + ".json") as f:
+        saved = json.load(f)["meta"]["stage"]
+    resumed = [r[0] for r in runs[1]["stages"]]
+    log("checkpoint at stage %s; resumed run's stages %s, iterations %s"
+        % (saved, resumed, [r[1] for r in runs[1]["stages"]]))
+    if resumed[0] != saved:
+        fail("the resumed run started at %s, not the saved stage %s"
+             % (resumed[0], saved))
+    # The resumed stage starts from a converged state, so it may move the
+    # answer only by a tenth of what the accuracy gates allow: intrinsics
+    # 0.05 px (gate 0.5), camera poses 1e-4 (gate 1e-3 on T_ck), time
+    # offset 2e-4 s (gate 2e-3).
+    a, b = (read_cameras_xml(os.path.join(o, "cameras.xml")) for o in outs)
+    d_intr = max(float(np.abs(x["params"] - y["params"]).max())
+                 for x, y in zip(a, b))
+    d_pose = max(float(np.abs(x["T_wc"] - y["T_wc"]).max())
+                 for x, y in zip(a, b))
+    d_ts = abs(runs[0]["ts"] - runs[1]["ts"])
+    log("checkpointed vs resumed cameras.xml: intrinsics |d| %.3g px "
+        "(gate 0.05), T_wc |d| %.3g (gate 1e-4), ts |d| %.3g s (gate 2e-4)"
+        % (d_intr, d_pose, d_ts))
+    if not (d_intr < 0.05 and d_pose < 1e-4 and d_ts < 2e-4):
+        fail("the resumed calibration moved away from the checkpointed one")
+    return {"checkpoint": runs[0], "resumed": runs[1], "saved_stage": saved,
+            "d_intrinsics_px": d_intr, "d_T_wc": d_pose, "d_ts_s": d_ts}
+
+
+def tracker_phase(dev, data, dirs, model_xml):
+    """tracker.main over camera 0's frames with the calibrated model; every
+    T_gw against the simulator's true camera pose."""
+    import contextlib
+    import io
+
+    from vicalib_tpu_torch import tracker
+    from vicalib_tpu_torch.detect import kernels
+    from vicalib_tpu_torch.geometry import quat_np
+
+    poses = os.path.join(os.path.dirname(dirs[0]), "tracker_poses.txt")
+    argv = ["-cam", "file://%s/*.pgm" % dirs[0], "-models", "linear",
+            "-model_files", model_xml, "-output_poses", poses]
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = tracker.main(argv, device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    text = buf.getvalue()
+    frames = [int(k) for k in re.findall(r"^frame (\d+) ", text, re.M)]
+    mats = np.array([float(x) for ln in re.findall(r"^[+-].*$", text, re.M)
+                     for x in ln.split()]).reshape(-1, 4, 4)
+    F = len(data.frame_times)
+    log("tracker rc=%d in %.2f s: %d/%d frames tracked, launches %s"
+        % (rc, wall, len(frames), F, launches))
+    if rc != 0 or len(frames) < 0.95 * F or len(mats) != len(frames):
+        fail("tracker tracked %d of %d frames" % (len(frames), F))
+    if launches["threshold_and_label"] != F:
+        fail("tracker launched the kernel %d times for %d frames"
+             % (launches["threshold_and_label"], F))
+    # the true grid-from-camera pose of camera 0: T_cw = T_ck T_wk^-1.
+    # Gate 1e-3 rad and 1 mm: one frame's planar PnP (a normalized DLT
+    # homography, no refinement) from up to 190 dots detected to ~0.01-0.1
+    # px at a 0.35 m target distance, with calibrated intrinsics, was off by
+    # at most 1.5e-4 rad and 1.1e-4 m on a 64-frame CPU rehearsal of this
+    # rig; a wrong convention or frame misses by tenths of a radian or
+    # centimetres
+    q_ck, t_ck = (np.asarray(x) for x in data.config.cameras[0].T_ck)
+    q_wk, t_wk = (np.asarray(x) for x in data.T_wk)
+    rot, trans = [], []
+    for k, T in zip(frames, mats):
+        q_t, t_t = quat_np.se3_mul((q_ck, t_ck), quat_np.se3_inverse(
+            (q_wk[k], t_wk[k])))
+        dq = quat_np.quat_mul(quat_np.inverse(q_t),
+                              quat_np.from_matrix(T[:3, :3]))
+        rot.append(float(np.linalg.norm(quat_np.log(dq))))
+        trans.append(float(np.linalg.norm(T[:3, 3] - t_t)))
+    log("tracker T_gw vs truth: rotation median %.3g max %.3g rad (gate "
+        "1e-3), translation median %.3g max %.3g m (gate 1e-3)"
+        % (np.median(rot), max(rot), np.median(trans), max(trans)))
+    if not (max(rot) < 1e-3 and max(trans) < 1e-3):
+        fail("tracker poses off the simulator's truth")
+    return {"launches": launches, "wall_s": wall, "tracked": len(frames),
+            "frames": F, "rot_err_max": max(rot), "trans_err_max":
+            max(trans), "rot_err_median": float(np.median(rot)),
+            "trans_err_median": float(np.median(trans))}
 
 
 def main():
@@ -540,13 +756,26 @@ def main():
     log("visual path: %s" % json.dumps(
         {"frames_per_camera": N_FRAMES, "cli_wall_s": wall,
          "phase_s": timings, "rmse_px": rmse, "cam1_T_err": err}))
-    vi = vi_phase(dev, N_FRAMES, profile=args.profile)
-    log("VI path: %s" % json.dumps(dict(vi, frames_per_camera=N_FRAMES)))
+    with tempfile.TemporaryDirectory(prefix="vicalib_smoke_vi_") as root:
+        cfg, data, dirs = write_vi_rig(dev, N_FRAMES, root)
+        vi = vi_phase(dev, cfg, root, dirs, profile=args.profile)
+        log("VI path: %s" % json.dumps(dict(vi, frames_per_camera=N_FRAMES)))
+        stream = stream_phase(dev, cfg, root, dirs, profile=args.profile)
+        log("stream path: %s" % json.dumps(
+            {k: v for k, v in stream.items() if k != "xml"}))
+        resume = resume_phase(dev, cfg, root, dirs)
+        log("resume path: %s" % json.dumps(resume))
+        trk = tracker_phase(dev, data, dirs, stream["xml"])
+        log("tracker path: %s" % json.dumps(trk))
+    paths = {"visual": launches, "vi": vi["launches"],
+             "stream": stream["launches"],
+             "resume": resume["resumed"]["launches"],
+             "tracker": trk["launches"]}
     for r in rows:
-        # the newest path's count; every path's count beside it
-        r["launches"] = vi["launches"][r["name"]]
-        r["launches_by_path"] = {"visual": launches[r["name"]],
-                                 "vi": vi["launches"][r["name"]]}
+        # this slice's main path (the stream) in "launches"; every path's
+        # count beside it
+        r["launches"] = stream["launches"][r["name"]]
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

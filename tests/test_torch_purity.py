@@ -31,6 +31,9 @@ def _port_files():
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "vicalib_tpu_torch/detect/kernels.py" in names
+    for mod in ("checkpoint", "streaming", "tracker", "viz", "report",
+                "status"):
+        assert "vicalib_tpu_torch/%s.py" % mod in names
     assert "chip_smoke.py" in names
     assert (ROOT / "vicalib_tpu_torch/csrc/threshold_label.cu").exists()
 

@@ -109,14 +109,10 @@ def test_cli_main_writes_the_same_calibration(stereo, tmp_path):
             np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("flag", ["stream_chunk", "n_shards",
-                                  "resume_file", "checkpoint_file",
-                                  "report_file", "status_port",
+@pytest.mark.parametrize("flag", ["n_shards", "coordinator_address",
                                   "num_processes"])
 def test_unported_flags_raise(flag):
-    value = {"stream_chunk": 8, "n_shards": 2,
-             "resume_file": "a.npz", "checkpoint_file": "a.npz",
-             "report_file": "r.html", "status_port": 8080,
+    value = {"n_shards": 2, "coordinator_address": "localhost:1234",
              "num_processes": 2}[flag]
     cfg = TConfig(cam="file:///nowhere/*.pgm", **{flag: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

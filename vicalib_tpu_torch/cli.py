@@ -4,12 +4,19 @@ Reference analog: src/main.cc:13-31 + the gflags inventory.  Accepts both
 ``--flag value`` and gflags-style ``-flag value`` / ``-noflag`` booleans
 (README.md:56's negation convention).
 
-Runs on the CUDA device (the engine raises when there is none).  Flags of
-parts not ported yet raise NotImplementedError.  Usage example, a stereo
+Runs on the CUDA device (the engine raises when there is none).  The
+multi-device flags (-n_shards, -coordinator_address, -num_processes) are
+not ported yet and raise NotImplementedError.  Usage example, a stereo
 camera-IMU rig:
   python -m vicalib_tpu_torch.cli -models linear,linear \
       -cam 'file://[<dir0>/*.pgm,<dir1>/*.pgm]' -imu 'csv://<imu_dir>' \
       -nouse_only_when_static
+Live mode: ``-stream_chunk 32`` re-solves every 32 frames, ``-report_file
+report.html`` rewrites an HTML report after each chunk and ``-status_port
+8080`` serves stats.json, the report and a scene SVG over HTTP.  Long
+solves: ``-checkpoint_file state.npz`` after every stage, ``-resume_file
+state.npz`` to continue; ``-profile_dir <dir>`` writes a torch.profiler
+Chrome trace of the solve.
 """
 from __future__ import annotations
 

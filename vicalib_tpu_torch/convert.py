@@ -16,9 +16,13 @@ from .solver.residuals import CameraObs, ImuFactors
 
 
 def state_from_numpy(d, device, dtype=torch.float64) -> CalibState:
-    """dict of arrays keyed by CalibState field -> CalibState on device."""
-    return CalibState(**{k: torch.as_tensor(np.array(d[k]), device=device)
-                         .to(dtype) for k in CalibState._fields})
+    """dict of arrays keyed by CalibState field -> CalibState on device,
+    in ``dtype`` (None: each array's own dtype)."""
+    def T(x):
+        t = torch.as_tensor(np.array(x), device=device)
+        return t if dtype is None else t.to(dtype)
+
+    return CalibState(**{k: T(d[k]) for k in CalibState._fields})
 
 
 def state_to_numpy(state: CalibState) -> dict:

@@ -286,3 +286,13 @@ def find_conics_batch(imgs, params: ConicParams = ConicParams(),
                                        det["radius"], det["valid"], H, W,
                                        params)
     return det
+
+
+def find_conics(img, params: ConicParams = ConicParams(),
+                at_threshold=0.9, at_window_ratio=30.0, device="cuda"):
+    """One frame (H, W): :func:`find_conics_batch` with a batch of one, so
+    a CUDA device launches the threshold + labelling kernel.  Returns a
+    dict of (K, ...) tensors: center, radius, area, valid."""
+    det = find_conics_batch(img[None], params, at_threshold,
+                            at_window_ratio, device=device)
+    return {k: v[0] for k, v in det.items()}

@@ -9,13 +9,18 @@ grid association), then one staged solver run replaces the background
 solver thread.
 
 Everything runs on the engine's explicit device, ``"cuda"`` unless the
-caller passes ``device="cpu"``.  The parts not ported yet raise
+caller passes ``device="cpu"``.  ``-stream_chunk N`` replaces the single
+solve by chunked, warm-started re-solves (streaming.py) that publish stats,
+rewrite ``-report_file`` and push a scene to ``-status_port`` after every
+chunk.  The parts not ported yet (the multi-device flags) raise
 NotImplementedError when a flag asks for them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import os
 import time
 
 import numpy as np
@@ -36,15 +41,9 @@ log = logging.getLogger("vicalib_tpu_torch.engine")
 
 # (config field, predicate "the flag asks for it", ROADMAP queue item)
 UNPORTED_FLAGS = (
-    ("stream_chunk", lambda v: v > 0, "streaming/checkpoint/tracker"),
-    ("resume_file", bool, "streaming/checkpoint/tracker"),
-    ("checkpoint_file", bool, "streaming/checkpoint/tracker"),
-    ("report_file", bool, "report/viz/status/io.uvc"),
-    ("status_port", lambda v: v > 0, "report/viz/status/io.uvc"),
     ("n_shards", lambda v: v > 1, "dist/ -> torch.distributed"),
     ("coordinator_address", bool, "dist/ -> torch.distributed"),
     ("num_processes", lambda v: v > 0, "dist/ -> torch.distributed"),
-    ("profile_dir", bool, "report/viz/status/io.uvc (observability)"),
 )
 
 
@@ -246,7 +245,125 @@ class VicalibEngine:
             names += ["poly3"] * (n_channels - len(names))
         return names[:n_channels], None
 
+    def _run_streaming(self, cfg, model_names, sel_times, pixels, visible,
+                       imu, widths, heights, dtype, options,
+                       time_offset_guess, stats):
+        """-stream_chunk N: incremental calibration during (replayed)
+        capture — the reference's background-solver live mode
+        (vicalib-engine.cc:375-433).  Frames are fed in chunks of N with
+        IMU interleaved by time; stats are published after every chunk."""
+        from . import viz
+        from .report import write_html_report
+        from .streaming import StreamingCalibrator
+
+        F = len(sel_times)
+
+        def publish(chunk):
+            stats.status = CalibrationStatus.OPTIMIZING
+            # same units as batch mode (cost / n_residuals, run_staged) so
+            # stats consumers can compare modes
+            stats.total_mse = chunk.cost / max(chunk.n_residuals, 1)
+            stats.reprojection_error = [float(r) for r in chunk.cam_rmse]
+            stats.num_iterations = chunk.iterations
+            stats.ts = chunk.time_offset
+            self.update_stats(stats.copy())
+            log.info("stream chunk: %d/%d frames rmse %s iters %d %.2fs",
+                     chunk.n_frames, F, chunk.cam_rmse, chunk.iterations,
+                     chunk.wall_s)
+            if cfg.report_file:
+                # rewrite the HTML report after every chunk so a browser
+                # pointed at it shows the run converging (the batch-side
+                # replacement for the reference's live Pangolin panels,
+                # vicalib-task.cc:154-225)
+                write_html_report(cfg.report_file, model_names, chunk.state,
+                                  cal._last_data, cal.last_result, stats,
+                                  widths, heights, target=self.target)
+            if self._status_server is not None:
+                # live 3-D view (the Pangolin scene panel analog,
+                # vicalib-engine.cc:388-432): host copies of the filled
+                # frames' poses, rendered to SVG text for the server thread
+                st = chunk.state
+                self._status_server.publish_scene(viz.scene_svg(
+                    None, self.target,
+                    st.q_wk[:chunk.n_frames].cpu().numpy(),
+                    st.t_wk[:chunk.n_frames].cpu().numpy()))
+
+        cal = StreamingCalibrator(
+            model_names, self.target.circles_3d(), widths=widths,
+            heights=heights, dtype=dtype, calibrate_imu=cfg.calibrate_imu,
+            optimize_time_offset=cfg.find_time_offset, options=options,
+            gyro_sigma=cfg.gyro_sigma, accel_sigma=cfg.accel_sigma,
+            stats_callback=publish, time_offset_guess=time_offset_guess,
+            remove_outliers=cfg.remove_outliers,
+            outlier_threshold=cfg.outlier_threshold, device=self.device)
+        cursor = 0
+        sel_times = np.asarray(sel_times)
+        for lo in range(0, F, cfg.stream_chunk):
+            hi = min(lo + cfg.stream_chunk, F)
+            if imu is not None:
+                # feed IMU samples up to the chunk's end plus window slack
+                t_hi = sel_times[hi - 1] + cal.window_slack \
+                    - time_offset_guess
+                take = int(np.searchsorted(imu.times, t_hi))
+                if take > cursor:
+                    cal.add_imu(imu.times[cursor:take],
+                                imu.gyro[cursor:take],
+                                imu.accel[cursor:take])
+                    cursor = take
+            cal.add_frames(sel_times[lo:hi], pixels[:, lo:hi],
+                           visible[:, lo:hi])
+            cal.solve()
+        result = cal.last_result
+        data = cal._last_data
+        if cfg.compute_covariance:
+            from .solver.stages import shared_covariance
+            result.covariance = shared_covariance(
+                result.state, data, cal._last_flags, cfg.gyro_sigma,
+                cfg.accel_sigma)
+        # drop the capacity-padding frames (and their observations and
+        # factors) so downstream outputs (poses.txt, the report) line up
+        # with the F selected frames
+        s = result.state
+        result.state = s._replace(q_wk=s.q_wk[:F], t_wk=s.t_wk[:F],
+                                  v_w=s.v_w[:F])
+        n_obs = F * data.obs[0].points_per_frame
+        obs = [dataclasses.replace(
+            o, frame_idx=o.frame_idx[:n_obs], p_w=o.p_w[:n_obs],
+            p_c=o.p_c[:n_obs], valid=o.valid[:n_obs]) for o in data.obs]
+        imu = None if data.imu is None else dataclasses.replace(
+            data.imu, **{k: getattr(data.imu, k)[:F - 1] for k in (
+                "win_times", "win_gyro", "win_accel", "start", "end",
+                "has_meas", "frame_i")})
+        return result, dataclasses.replace(data, obs=obs, imu=imu,
+                                           n_frames=F)
+
     def run(self) -> EngineResult:
+        self._status_server = None
+        if self.cfg.status_port > 0:
+            # live observability (vicalib-engine.cc:108, 388-432 polls
+            # CalibrationStats for the GUI every 30 ms): serve the latest
+            # stats + the (per-chunk rewritten) HTML report over HTTP
+            from .status import StatusServer
+
+            server = StatusServer(self.cfg.status_port,
+                                  report_path=self.cfg.report_file
+                                  or None).start()
+            inner = self.update_stats
+
+            def update_with_status(s):
+                server.publish(s)
+                inner(s)
+
+            self.update_stats = update_with_status
+            self._status_server = server
+        try:
+            return self._run()
+        finally:
+            if self._status_server is not None:
+                self._status_server.stop()
+                self.update_stats = inner
+
+    def _run(self) -> EngineResult:
         from .solver import StageFlags, run_staged
         from .solver.build import build_problem
         from .solver.lm import LMOptions
@@ -398,11 +515,36 @@ class VicalibEngine:
                                           and cfg.find_time_offset
                                           and cfg.calibrate_imu))
         t0 = time.time()
-        data, state = build_problem(
-            model_names, np.asarray(sel_times), pixels, visible,
-            self.target.circles_3d(), widths=widths, heights=heights,
-            dtype=dtype, device=dev, intr0=intr0, T_ck0=T_ck0,
-            use_ransac=True, **kw)
+        if cfg.stream_chunk > 0:
+            # streaming does its own incremental problem builds; keep the
+            # time-offset refinement: PnP poses from a visual-only build,
+            # then raw-stream gyro/vision alignment, so streaming handles
+            # clock skew beyond the first-sample guess as batch mode does
+            for flag_set, name in ((bool(cfg.checkpoint_file),
+                                    "-checkpoint_file"),
+                                   (bool(cfg.resume_file), "-resume_file")):
+                if flag_set:
+                    log.warning("%s is not supported with -stream_chunk — "
+                                "ignored", name)
+            data = state = None
+            if kw.get("refine_time_offset"):
+                from .solver.build import refine_offset_guess
+                _, state_v = build_problem(
+                    model_names, np.asarray(sel_times), pixels, visible,
+                    self.target.circles_3d(), widths=widths,
+                    heights=heights, dtype=dtype, device=dev, intr0=intr0,
+                    T_ck0=T_ck0, use_ransac=True)
+                time_offset_guess = float(refine_offset_guess(
+                    np.asarray(sel_times), state_v.q_wk.cpu().numpy(),
+                    imu.times, imu.gyro, time_offset_guess))
+                log.info("refined camera-IMU time offset guess: %.6f s",
+                         time_offset_guess)
+        else:
+            data, state = build_problem(
+                model_names, np.asarray(sel_times), pixels, visible,
+                self.target.circles_3d(), widths=widths, heights=heights,
+                dtype=dtype, device=dev, intr0=intr0, T_ck0=T_ck0,
+                use_ransac=True, **kw)
         _sync(dev)
         timings["build"] = time.time() - t0
 
@@ -416,15 +558,49 @@ class VicalibEngine:
             fix_intrinsics=not cfg.calibrate_intrinsics)
         options = LMOptions(max_iters=cfg.max_iters,
                             function_tolerance=cfg.function_tolerance)
+        resume = False
+        if cfg.resume_file and cfg.stream_chunk == 0:
+            from .checkpoint import load_checkpoint
+            state, saved_flags, meta = load_checkpoint(
+                cfg.resume_file, dtype=dtype, device=dev)
+            if saved_flags is not None:
+                flags = saved_flags
+            resume = True
+            log.info("resuming from %s (stage %s)", cfg.resume_file,
+                     meta.get("stage"))
+        prof_ctx = contextlib.nullcontext()
+        if cfg.profile_dir:
+            # the counterpart of the JAX package's jax.profiler trace: a
+            # torch.profiler Chrome trace of the solve, with device activity
+            # on a CUDA device
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            prof_ctx = profile(activities=acts)
         t0 = time.time()
-        result = run_staged(state, data, flags, options,
-                            do_remove_outliers=cfg.remove_outliers,
-                            outlier_threshold=cfg.outlier_threshold,
-                            gyro_sigma=cfg.gyro_sigma,
-                            accel_sigma=cfg.accel_sigma,
-                            compute_cov=cfg.compute_covariance)
-        _sync(dev)
+        with prof_ctx as prof:
+            if cfg.stream_chunk > 0:
+                result, data = self._run_streaming(
+                    cfg, model_names, sel_times, pixels, visible, imu,
+                    widths, heights, dtype, options, time_offset_guess,
+                    stats)
+            else:
+                result = run_staged(
+                    state, data, flags, options,
+                    do_remove_outliers=cfg.remove_outliers,
+                    outlier_threshold=cfg.outlier_threshold,
+                    gyro_sigma=cfg.gyro_sigma, accel_sigma=cfg.accel_sigma,
+                    checkpoint_path=cfg.checkpoint_file or None,
+                    compute_cov=cfg.compute_covariance, resume=resume)
+            _sync(dev)
         timings["solve"] = time.time() - t0
+        if prof is not None:
+            os.makedirs(cfg.profile_dir, exist_ok=True)
+            trace = os.path.join(cfg.profile_dir,
+                                 "solve_trace_%d.json" % os.getpid())
+            prof.export_chrome_trace(trace)
+            log.info("wrote profiler trace %s", trace)
         state = result.state
         q_ck = state.q_ck.cpu().numpy()
         p_ck = state.p_ck.cpu().numpy()
@@ -502,6 +678,12 @@ class VicalibEngine:
             out_io.write_poses_txt("poses.txt", q_wk, t_wk, good=good)
         if cfg.save_poses:
             out_io.write_poses_csv("poses.csv", q_wk, t_wk)
+        if cfg.report_file:
+            from .report import write_html_report
+            write_html_report(cfg.report_file, model_names, state, data,
+                              result, stats, widths, heights,
+                              target=self.target)
+            log.info("wrote calibration report to %s", cfg.report_file)
 
         log.info("phase seconds: %s", " ".join(
             "%s=%.3f" % kv for kv in timings.items()),

@@ -268,6 +268,28 @@ def integrate_sequence(y0, seq_times, seq_gyro, seq_accel, bg, ba, sf, g_w):
     return torch.cat([t_end, q_end, v_end])
 
 
+def integrate_trajectory(y0, seq_times, seq_gyro, seq_accel, bg, ba, sf,
+                         g_w):
+    """Positions after every RK4 step of the chain, (M-1, 3): the
+    trajectory :func:`integrate_sequence_seq` passes through (the display
+    strips of GetIntegrationPoses, vicalibrator.h:508-533), from the same
+    factorized locals as :func:`integrate_sequence` — a prefix product and
+    cumulative sums instead of a loop over the steps."""
+    t0_, q0, v0 = y0[0:3], y0[3:7], y0[7:10]
+    gamma, b, e, dt = _rk4_step_locals(
+        seq_times[:-1], seq_times[1:], seq_gyro[:-1], seq_gyro[1:],
+        seq_accel[:-1], seq_accel[1:], bg, ba, sf)
+    P = quat_prefix_product(gamma)
+    P_pre = torch.cat([_ident_quat(P[:1]), P[:-1]], dim=0)
+    q_k = so3.quat_mul(q0[None, :], P_pre)                   # before step k
+    dv = so3.rotate(q_k, b) - g_w * dt[:, None]
+    v_k = v0 + torch.cat([torch.zeros_like(dv[:1]),
+                          torch.cumsum(dv, dim=0)[:-1]])     # before step k
+    dt2 = dt[:, None]
+    step = v_k * dt2 + so3.rotate(q_k, e) - g_w * (0.5 * dt2 * dt2)
+    return t0_ + torch.cumsum(step, dim=0)
+
+
 _ROT_ROWS = (0., 0., 0., 1., 1., 1., 0., 0., 0.)
 
 

@@ -236,13 +236,14 @@ def associate_channels(camera, system: bool = False, tol: float = None):
 def parse_camera_uri(uri: str) -> CameraSource:
     """HAL-style camera URIs: ``file://<glob>``, ``file://[g0,g1]`` or a
     bare glob.  The other schemes of the reference (``deinterlace://``,
-    ``rectify:``, ``uvc:``) are not ported yet (ROADMAP, queue 1)."""
+    ``rectify:``, ``uvc:``) are not ported yet (ROADMAP, queue 1, capture
+    sources)."""
     m = re.match(r"^(\w+):(\[[^\]]*\])?//(.*)$", uri)
     scheme = m.group(1).lower() if m else "file"
     if scheme != "file":
         raise NotImplementedError(
             f"camera URI scheme {scheme!r} is not ported yet; see ROADMAP.md "
-            "queue 1 (report/viz/status/io.uvc and the other sources)")
+            "queue 1 (capture sources)")
     path = m.group(3) if m else uri
     if path.startswith("["):
         globs = [g.strip() for g in path.strip("[]").split(",")]
