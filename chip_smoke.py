@@ -46,7 +46,27 @@ Phases, in order; any failure exits non-zero:
      stream phase's cameras.xml as ``-model_files``): at least 95 % of the
      frames tracked, every T_gw within 1e-3 rad and 1 mm of the simulator's
      true camera pose, and one kernel launch per frame;
-  9. the ``kernels`` JSON line (launches per path), the nvidia-smi line
+  9. the sharded solve on phase 5's files, holding each run to phase 5's
+     gates and to phase 5's answer with the JAX package's tolerances for
+     a sharded against a single-device solve (tests/test_dist.py:97-105:
+     rmse rtol 2e-3, q_ck 1e-5, biases 1e-4, time offset 1e-5):
+     (a) ``cli.main(<phase-5 argv> -n_shards 2)`` in this process, both
+         shards on cuda:0 — prints the stage table, seconds per LM
+         iteration and the shard placement;
+     (b) the same argv in two processes, ``python -m
+         vicalib_tpu_torch.cli ... -coordinator_address 127.0.0.1:<port>
+         -num_processes 2 -process_id {0,1}`` (run through runpy, which
+         prints the process's kernel launch counts at exit), both on the
+         one card and writing to one directory: both exit 0, exactly one
+         cameras.xml, written by rank 0, both ranks log the same
+         iterations per stage; prints the backend, each rank's wall time,
+         the bytes all-reduced per LM iteration and the seconds spent in
+         collectives; a failed or late process kills both;
+     (c) ``rectify:[file=<phase 4's cameras.xml>]//file://[...]``: phase
+         4's images undistorted through phase 4's linear calibration (an
+         identity remap up to bilinear rounding) and calibrated
+         camera-only: phase 4's gates;
+ 10. the ``kernels`` JSON line (launches per path), the nvidia-smi line
      and, last, the result.
 
 Imports nothing of JAX or the JAX package.
@@ -58,6 +78,7 @@ import json
 import logging
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -76,6 +97,10 @@ NON_FMA_OPS_PER_S = 33.5e12
 VI_GYRO_BIAS = np.array([0.01, -0.02, 0.015])
 VI_ACCEL_BIAS = np.array([0.05, 0.02, -0.04])
 VI_TIME_OFFSET = 0.004
+# a sharded against a single-device solve (tests/test_dist.py:97-105)
+SHARD_TOL = {"rmse_rtol": 2e-3, "q_ck": 1e-5, "biases": 1e-4, "ts": 1e-5}
+# the two-process phase: seconds before both processes are killed
+TWO_PROCESS_TIMEOUT_S = 400
 REPLACES = {"threshold_and_label": "vicalib_tpu/detect/pallas_kernels.py:194"}
 SOURCES = {"threshold_and_label": "vicalib_tpu_torch/csrc/threshold_label.cu"}
 
@@ -352,11 +377,14 @@ class _Capture(logging.Handler):
     def __init__(self):
         super().__init__()
         self.timings = None
+        self.collectives = None
         self.chunks = []
 
     def emit(self, record):
         if hasattr(record, "timings"):
             self.timings = record.timings
+        if hasattr(record, "collectives"):
+            self.collectives = record.collectives
         if hasattr(record, "chunk"):
             self.chunks.append(record.chunk)
 
@@ -385,10 +413,12 @@ def _device_profile(prof, wall_s, top=15):
         log("  %9.3f ms %6d x  %s" % (ms, n, key[:90]))
 
 
-def run_cli(dev, argv, profile=False, chunks=None):
+def run_cli(dev, argv, profile=False, chunks=None, sharded=None):
     """One ``cli.main`` run with every kernel count set to 0 just before it
     and read just after; under ``profile`` also the device profile.  The
-    streaming chunk rows are appended to ``chunks`` when it is given."""
+    streaming chunk rows are appended to ``chunks`` when it is given, the
+    sharded solve's record (placement, collectives) is put in ``sharded``
+    when it is given."""
     from vicalib_tpu_torch import cli
     from vicalib_tpu_torch.detect import kernels
 
@@ -424,6 +454,8 @@ def run_cli(dev, argv, profile=False, chunks=None):
             fail("kernel %s was not launched on this path" % k)
     if chunks is not None:
         chunks.extend(cap.chunks)
+    if sharded is not None:
+        sharded.update(cap.collectives or {})
     return launches, cap.timings, wall
 
 
@@ -446,10 +478,10 @@ def se3_err(a, b):
 
 
 def main_path_phase(dev, n_frames, profile=False):
-    """The visual path: camera-only stereo calibration through cli.main."""
-    from vicalib_tpu_torch.geometry import quat_np
+    """The visual path: camera-only stereo calibration through cli.main;
+    then phase 9 (c), the same images through ``rectify:`` with the
+    calibration just made."""
     from vicalib_tpu_torch.io import sim, sources
-    from vicalib_tpu_torch.io.outputs import read_cameras_xml
 
     cfg = stereo_config(sim, n_frames)
     with tempfile.TemporaryDirectory(prefix="vicalib_smoke_") as root:
@@ -458,15 +490,31 @@ def main_path_phase(dev, n_frames, profile=False):
         dirs = write_rig(sim, sources, data, root, dev)
         log("rendered and wrote %d x 2 frames in %.2f s"
             % (n_frames, time.time() - t0))
-        xml = os.path.join(root, "cameras.xml")
-        logf = os.path.join(root, "vicalibrator.log")
-        argv = ["-models", "linear,linear",
-                "-cam", "file://[%s/*.pgm,%s/*.pgm]" % tuple(dirs),
-                "-nouse_only_when_static", "-output", xml,
-                "-output_log_file", logf]
-        launches, timings, wall = run_cli(dev, argv, profile)
-        cams = read_cameras_xml(xml)
-        rmse = parse_log(logf)["rmse"]
+        cam_uri = "file://[%s/*.pgm,%s/*.pgm]" % tuple(dirs)
+        launches, timings, wall, rmse, err = visual_run(
+            dev, cfg, cam_uri, root, "visual", profile)
+        rect = visual_run(dev, cfg, "rectify:[file=%s]//%s" % (
+            os.path.join(root, "visual", "cameras.xml"), cam_uri), root,
+            "rectify")
+    return (launches, timings, wall, rmse, err), rect
+
+
+def visual_run(dev, cfg, cam_uri, root, label, profile=False):
+    """One camera-only stereo calibration of ``cam_uri`` through cli.main
+    into <root>/<label>, held to phase 4's gates."""
+    from vicalib_tpu_torch.geometry import quat_np
+    from vicalib_tpu_torch.io.outputs import read_cameras_xml
+
+    out = os.path.join(root, label)
+    os.makedirs(out)
+    xml = os.path.join(out, "cameras.xml")
+    logf = os.path.join(out, "vicalibrator.log")
+    argv = ["-models", "linear,linear", "-cam", cam_uri,
+            "-nouse_only_when_static", "-output", xml,
+            "-output_log_file", logf]
+    launches, timings, wall = run_cli(dev, argv, profile)
+    cams = read_cameras_xml(xml)
+    rmse = parse_log(logf)["rmse"]
     if len(cams) != 2 or len(rmse) != 2:
         fail("expected 2 cameras in cameras.xml and the log")
     check_intrinsics(cams, cfg)
@@ -478,8 +526,8 @@ def main_path_phase(dev, n_frames, profile=False):
     rel = quat_np.se3_mul(T[1], quat_np.se3_inverse(T[0]))
     q_t, t_t = cfg.cameras[1].T_ck
     err = se3_err(rel, (np.asarray(q_t), np.asarray(t_t)))
-    log("cam 1 extrinsic error %.3e (gate 1e-3), rmse %s px (gate 0.12)"
-        % (err, rmse))
+    log("%s: cam 1 extrinsic error %.3e (gate 1e-3), rmse %s px (gate 0.12)"
+        % (label, err, rmse))
     if not err < 1e-3:
         fail("cam 1 extrinsic error %.3e above 1e-3" % err)
     if not max(rmse) < 0.12:
@@ -556,6 +604,7 @@ def vi_phase(dev, cfg, root, dirs, profile=False):
     return {"launches": launches, "phase_s": timings, "cli_wall_s": wall,
             "rmse_px": res["rmse"], "T_ck_err": errs, "ts": res["ts"],
             "bw_ba": res["bw_ba"].tolist(),
+            "T_ck": [T.tolist() for T in res["T_ck"]],
             "stages": [[n, int(i), float(c), float(w)]
                        for n, i, c, w in res["stages"]]}
 
@@ -668,6 +717,164 @@ def resume_phase(dev, cfg, root, dirs):
             "d_intrinsics_px": d_intr, "d_T_wc": d_pose, "d_ts_s": d_ts}
 
 
+def agreement(label, res, ref):
+    """A run's result log ``res`` against phase 5's (``ref``, vi_phase's
+    dict) with SHARD_TOL; fails past a tolerance."""
+    from vicalib_tpu_torch.geometry import quat_np
+
+    d_rmse = max(abs(a - b) / b for a, b in zip(res["rmse"], ref["rmse_px"]))
+    d_q = 0.0
+    for T, T_ref in zip(res["T_ck"], ref["T_ck"]):
+        q = quat_np.from_matrix(np.asarray(T)[:3, :3])
+        q_ref = quat_np.from_matrix(np.asarray(T_ref)[:3, :3])
+        d_q = max(d_q, min(np.abs(q - q_ref).max(), np.abs(q + q_ref).max()))
+    d_b = float(np.abs(res["bw_ba"] - np.asarray(ref["bw_ba"])).max())
+    d_ts = abs(res["ts"] - ref["ts"])
+    got = {"rmse_rtol": d_rmse, "q_ck": float(d_q), "biases": d_b,
+           "ts": d_ts}
+    log("%s against phase 5: %s (tolerances %s)"
+        % (label, {k: "%.3g" % v for k, v in got.items()}, SHARD_TOL))
+    for k, v in got.items():
+        if not v <= SHARD_TOL[k]:
+            fail("%s differs from phase 5's run: %s %.3g above %g"
+                 % (label, k, v, SHARD_TOL[k]))
+    return got
+
+
+def stage_iters(rows):
+    return [(n, int(i)) for n, i, *_ in rows]
+
+
+def sharded_phase(dev, cfg, root, dirs, ref):
+    """Phase 9 (a): -n_shards 2 in this process, both shards on cuda:0."""
+    out = os.path.join(root, "sharded")
+    os.makedirs(out)
+    info = {}
+    launches, timings, wall = run_cli(
+        dev, vi_argv(root, dirs, out) + ["-n_shards", "2"], sharded=info)
+    _, res, errs = check_vi(cfg, out, "sharded")
+    iters = sum(int(r[1]) for r in res["stages"])
+    per_it = timings["solve"] / iters
+    log("sharded (one process): %s; solve %.3f s over %d LM iterations = "
+        "%.4f s per iteration (phase 5: %.4f s)"
+        % (info.get("placement"), timings["solve"], iters, per_it,
+           ref["phase_s"]["solve"] / sum(r[1] for r in ref["stages"])))
+    if info.get("placement") is None or "shards [0, 1] of 2" not in \
+            info["placement"]:
+        fail("the sharded run did not report two shards: %s" % info)
+    return {"launches": launches, "phase_s": timings, "cli_wall_s": wall,
+            "placement": info["placement"], "s_per_iteration": per_it,
+            "iterations": iters, "T_ck_err": errs, "rmse_px": res["rmse"],
+            "ts": res["ts"], "agreement": agreement("sharded", res, ref),
+            "stages": [[n, int(i), float(c), float(w)]
+                       for n, i, c, w in res["stages"]]}
+
+
+# the CLI module run as ``python -m vicalib_tpu_torch.cli`` (runpy), which
+# prints the process's kernel launch counts when it exits
+_CLI_WORKER = (
+    "import atexit, json, runpy\n"
+    "from vicalib_tpu_torch.detect import kernels\n"
+    "atexit.register(lambda: print('KERNEL_LAUNCHES ' + json.dumps("
+    "kernels.LAUNCHES), flush=True))\n"
+    "runpy.run_module('vicalib_tpu_torch.cli', run_name='__main__', "
+    "alter_sys=True)\n")
+
+
+def two_process_phase(cfg, root, dirs, ref):
+    """Phase 9 (b): the CLI in two processes on the one card, joined by
+    torch.distributed, writing into one directory."""
+    out = os.path.join(root, "two_process")
+    os.makedirs(out)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    logs = [os.path.join(out, "rank%d.txt" % r) for r in (0, 1)]
+    files = [open(p, "w") for p in logs]
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CLI_WORKER] + vi_argv(root, dirs, out) + [
+            "-coordinator_address", "127.0.0.1:%d" % port,
+            "-num_processes", "2", "-process_id", str(r)],
+        stdout=files[r], stderr=subprocess.STDOUT, cwd=out, env=env)
+        for r in (0, 1)]
+    walls = [None, None]
+    try:
+        while any(w is None for w in walls):
+            for r, p in enumerate(procs):
+                if walls[r] is None and p.poll() is not None:
+                    walls[r] = time.time() - t0
+                    if p.returncode != 0:
+                        raise RuntimeError("rank %d exited %d"
+                                           % (r, p.returncode))
+            if time.time() - t0 > TWO_PROCESS_TIMEOUT_S:
+                raise RuntimeError("not done within %d s"
+                                   % TWO_PROCESS_TIMEOUT_S)
+            time.sleep(0.2)
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    texts = []
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            texts.append(f.read())
+        log("rank %d log, last lines:\n  %s" % (r, "\n  ".join(
+            texts[r].strip().splitlines()[-6:])))
+    if err is not None:
+        fail("two-process run: " + err)
+    xmls = sorted(n for n in os.listdir(out) if n.endswith(".xml"))
+    if xmls != ["cameras.xml"] or "process 1 wrote nothing" not in texts[1] \
+            or "wrote %s" % os.path.join(out, "cameras.xml") not in texts[0]:
+        fail("expected one cameras.xml, written by rank 0: %s" % xmls)
+    _, res, errs = check_vi(cfg, out, "two-process")
+    ranks = []
+    for r, text in enumerate(texts):
+        m = re.search(r"sharded solve: (.*?); (\d+) collectives, (\d+) "
+                      r"bytes, ([0-9.]+) s", text)
+        k = re.search(r"^KERNEL_LAUNCHES (.*)$", text, re.M)
+        ph = re.search(r"phase seconds: (.*)$", text, re.M)
+        st = re.findall(r"stage (\S+)\s+iters\s+(\d+) cost", text)
+        if m is None or k is None or not st:
+            fail("rank %d's log lacks the sharded solve, stage or kernel "
+                 "lines" % r)
+        launches = json.loads(k.group(1))
+        if min(launches.values()) <= 0:
+            fail("rank %d launched no kernel: %s" % (r, launches))
+        iters = sum(int(i) for _, i in st)
+        ranks.append({"phase_s": ph and ph.group(1), "collectives":
+                      int(m.group(2)), "placement": m.group(1),
+                      "bytes": int(m.group(3)),
+                      "collective_s": float(m.group(4)), "wall_s": walls[r],
+                      "stages": [(n, int(i)) for n, i in st],
+                      "iterations": iters, "launches": launches,
+                      "bytes_per_iteration": int(m.group(3)) / iters})
+    if ranks[0]["stages"] != ranks[1]["stages"]:
+        fail("the ranks took different iterations per stage: %s / %s"
+             % (ranks[0]["stages"], ranks[1]["stages"]))
+    if ranks[0]["stages"] != stage_iters(res["stages"]):
+        fail("rank 0's log and result file disagree on the stages")
+    for r, d in enumerate(ranks):
+        log("rank %d: %s; wall %.2f s (phase seconds %s); stages %s; %d "
+            "collectives, %d bytes (%.0f per LM iteration), %.3f s in "
+            "collectives; launches %s"
+            % (r, d["placement"], d["wall_s"], d["phase_s"], d["stages"],
+               d["collectives"], d["bytes"], d["bytes_per_iteration"],
+               d["collective_s"], d["launches"]))
+    return {"ranks": ranks, "T_ck_err": errs, "rmse_px": res["rmse"],
+            "ts": res["ts"], "agreement": agreement("two-process", res, ref),
+            "launches": ranks[0]["launches"]}
+
+
 def tracker_phase(dev, data, dirs, model_xml):
     """tracker.main over camera 0's frames with the calibrated model; every
     T_gw against the simulator's true camera pose."""
@@ -751,11 +958,14 @@ def main():
     log("kernel build: %.2f s" % (time.time() - t0))
 
     rows = kernel_phase(dev)
-    launches, timings, wall, rmse, err = main_path_phase(
+    (launches, timings, wall, rmse, err), rect = main_path_phase(
         dev, N_FRAMES, profile=args.profile)
     log("visual path: %s" % json.dumps(
         {"frames_per_camera": N_FRAMES, "cli_wall_s": wall,
          "phase_s": timings, "rmse_px": rmse, "cam1_T_err": err}))
+    log("rectify path: %s" % json.dumps(
+        {"cli_wall_s": rect[2], "phase_s": rect[1], "rmse_px": rect[3],
+         "cam1_T_err": rect[4], "launches": rect[0]}))
     with tempfile.TemporaryDirectory(prefix="vicalib_smoke_vi_") as root:
         cfg, data, dirs = write_vi_rig(dev, N_FRAMES, root)
         vi = vi_phase(dev, cfg, root, dirs, profile=args.profile)
@@ -767,14 +977,19 @@ def main():
         log("resume path: %s" % json.dumps(resume))
         trk = tracker_phase(dev, data, dirs, stream["xml"])
         log("tracker path: %s" % json.dumps(trk))
+        sharded = sharded_phase(dev, cfg, root, dirs, vi)
+        log("sharded path: %s" % json.dumps(sharded))
+        two = two_process_phase(cfg, root, dirs, vi)
+        log("two-process path: %s" % json.dumps(two))
     paths = {"visual": launches, "vi": vi["launches"],
              "stream": stream["launches"],
              "resume": resume["resumed"]["launches"],
-             "tracker": trk["launches"]}
+             "tracker": trk["launches"], "sharded": sharded["launches"],
+             "two_process_rank0": two["launches"], "rectify": rect[0]}
     for r in rows:
-        # this slice's main path (the stream) in "launches"; every path's
-        # count beside it
-        r["launches"] = stream["launches"][r["name"]]
+        # this slice's main path (the sharded run) in "launches"; every
+        # path's count beside it
+        r["launches"] = sharded["launches"][r["name"]]
         r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
     log(smi)
     log(json.dumps({"kernels": rows}))

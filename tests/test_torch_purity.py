@@ -32,7 +32,8 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "vicalib_tpu_torch/detect/kernels.py" in names
     for mod in ("checkpoint", "streaming", "tracker", "viz", "report",
-                "status"):
+                "status", "dist/mesh", "dist/sharded", "dist/multihost",
+                "io/uvc"):
         assert "vicalib_tpu_torch/%s.py" % mod in names
     assert "chip_smoke.py" in names
     assert (ROOT / "vicalib_tpu_torch/csrc/threshold_label.cu").exists()
@@ -48,10 +49,14 @@ def test_no_jax_import(path):
 
 
 def test_host_copies_agree_with_the_originals():
+    from vicalib_tpu.dist import mesh as j_mesh
     from vicalib_tpu.geometry import quat_np as j_q
+    from vicalib_tpu.io import uvc as j_uvc
     from vicalib_tpu.targets import grid as j_grid
     from vicalib_tpu.targets import grid_match as j_gm
+    from vicalib_tpu_torch.dist import mesh as t_mesh
     from vicalib_tpu_torch.geometry import quat_np as t_q
+    from vicalib_tpu_torch.io import uvc as t_uvc
     from vicalib_tpu_torch.targets import grid as t_grid
     from vicalib_tpu_torch.targets import grid_match as t_gm
 
@@ -62,6 +67,14 @@ def test_host_copies_agree_with_the_originals():
     w = rng.normal(size=(5, 3))
     np.testing.assert_array_equal(t_q.exp(w), j_q.exp(w))
     np.testing.assert_array_equal(t_q.log(t_q.exp(w)), j_q.log(j_q.exp(w)))
+    for n in (6, 7):
+        a = rng.normal(size=(n, 3))
+        np.testing.assert_array_equal(t_mesh.pad_to_multiple(a, 4),
+                                      j_mesh.pad_to_multiple(a, 4))
+    # V4L2 luma extraction on tightly packed YUYV rows
+    raw = rng.integers(0, 256, 2 * 30 * 8, dtype=np.uint8).tobytes()
+    np.testing.assert_array_equal(t_uvc._yuyv_to_grey(raw, 30, 8),
+                                  j_uvc._yuyv_to_grey(raw, 30, 8))
     # the python grid matcher on a clean synthetic lattice
     target = t_grid.make_target()
     pts = target.circles_3d()[:, :2] * 4000.0 + 50.0

@@ -109,22 +109,6 @@ def test_cli_main_writes_the_same_calibration(stereo, tmp_path):
             np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("flag", ["n_shards", "coordinator_address",
-                                  "num_processes"])
-def test_unported_flags_raise(flag):
-    value = {"n_shards": 2, "coordinator_address": "localhost:1234",
-             "num_processes": 2}[flag]
-    cfg = TConfig(cam="file:///nowhere/*.pgm", **{flag: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(cfg, device="cpu")
-
-
-def test_other_camera_schemes_raise():
-    from vicalib_tpu_torch.io import sources
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sources.parse_camera_uri("uvc:[dev=/dev/video0]//")
-
-
 @pytest.mark.parametrize("layout", ["mono", "aligned", "async"])
 def test_associate_channels_matches_jax(tmp_path, layout):
     """Superframe association (host code) on index-aligned and on async

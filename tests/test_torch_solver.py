@@ -4,11 +4,15 @@ Both packages get the same problem and state through ``convert`` (numpy
 dicts keyed by the JAX field names).  Float64 throughout.  Sums are taken in
 other orders (batched matmul vs XLA dot), so assembled blocks agree to a
 relative 1e-9 of their largest entry, and solves of the damped, Jacobi-scaled
-systems to 1e-8 relative.
+systems to 1e-8 relative.  Row-major observations (rows in any order, as
+the shards of dist/sharded.py hold them) go through per-row Jacobians: the
+port's analytic ones against JAX's reverse mode to 1e-10, the assembly to
+the same 1e-9.
 """
 import dataclasses
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,11 +24,15 @@ from vicalib_tpu.solver import problem as jp
 from vicalib_tpu.solver import robust as jr
 from vicalib_tpu.solver import schur as js
 from vicalib_tpu.solver.build import problem_from_sim
+from vicalib_tpu.solver.residuals import \
+    reproj_residuals_and_jacobians as j_rj
 from vicalib_tpu_torch import convert
 from vicalib_tpu_torch.solver import lm as tlm
 from vicalib_tpu_torch.solver import problem as tp
 from vicalib_tpu_torch.solver import robust as tr
 from vicalib_tpu_torch.solver import schur as ts
+from vicalib_tpu_torch.solver.residuals import \
+    reproj_residuals_and_jacobians as t_rj
 
 # the solver packages export a function named ``assemble``; take the modules
 ja = importlib.import_module("vicalib_tpu.solver.assemble")
@@ -201,3 +209,46 @@ def test_one_lm_step_matches_jax(problem):
     for a, b in zip(new_j, new_t):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
                                    atol=1e-9)
+
+
+def _rows_shuffled(data, perms):
+    """The problem with each camera's rows permuted (no longer frame-major:
+    points_per_frame None)."""
+    return dataclasses.replace(data, obs=[dataclasses.replace(
+        o, frame_idx=o.frame_idx[p], p_w=o.p_w[p], p_c=o.p_c[p],
+        valid=o.valid[p], points_per_frame=None)
+        for o, p in zip(data.obs, perms)])
+
+
+def test_reproj_residuals_and_jacobians_match_jax(problem):
+    data_j, state_j, data_t, state_t, _, _ = problem
+    jitted = jax.jit(j_rj, static_argnums=(2, 3))
+    for c, name in enumerate(data_t.layout.model_names):
+        out_j = jitted(state_j, data_j.obs[c], c, name)
+        out_t = t_rj(state_t, data_t.obs[c], c, name)
+        for what, a, b in zip(["r", "J_pose", "J_rot", "J_trans", "J_intr"],
+                              out_j, out_t):
+            assert tuple(b.shape) == tuple(a.shape), what
+            _rel_close(b.numpy(), a, 1e-10)
+
+
+def test_row_major_assemble_matches_jax(problem):
+    """Rows shuffled within each camera: the port's index_add assembly
+    against JAX's segment-sum assembly of the same rows."""
+    data_j, state_j, data_t, state_t, (fm_j, sm_j), (fm_t, sm_t) = problem
+    rng = np.random.default_rng(5)
+    perms = [rng.permutation(len(o.frame_idx)) for o in data_t.obs]
+    data_j = _rows_shuffled(data_j, perms)
+    data_t = _rows_shuffled(data_t, [torch.as_tensor(p) for p in perms])
+    W = jnp.eye(9)[None] * 500.0
+    out_j = jax.jit(ja.assemble)(state_j, data_j, W, fm_j, sm_j,
+                                 jnp.asarray(0.0), jnp.asarray(True))
+    out_t = ta.assemble(state_t, data_t, None, fm_t, sm_t, 0.0, True)
+    for name, a, b in zip(["D", "U", "Hfs", "Hss", "gf", "gs", "cost",
+                           "n_res"], out_j, out_t):
+        assert tuple(b.shape) == tuple(a.shape), name
+        _rel_close(b.numpy(), a, 1e-9)
+    cj = jax.jit(ja.robust_costs)(state_j, data_j, W, 0.0, True)
+    ct = ta.robust_costs(state_t, data_t, None, 0.0, True)
+    for a, b in zip(cj, ct):
+        _rel_close(b.numpy(), a, 1e-12)

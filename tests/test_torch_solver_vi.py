@@ -14,6 +14,13 @@ Tolerances, relative to the largest entry of each compared array:
   systems with condition numbers up to ~1e4 after scaling);
 - the assembled system 1e-9; the initializers 1e-10; one LM step as the
   camera-only parity test holds it (test_torch_solver.py).
+The sharded solver (dist/) on the same problem: the shards array for array
+equal to JAX's; one sharded step at 1, 2 and 3 shards against JAX's
+single-device step as tests/test_dist.py holds JAX's own (cost 1e-12,
+trial cost 1e-8, state 1e-9); the sharded staged schedule against JAX's
+staged result with that file's tolerances (sums in another order can move
+a discrete candidate choice and so the iterate path, not the converged
+answer).
 """
 import dataclasses
 import importlib
@@ -25,6 +32,7 @@ import pytest
 import torch
 
 from vicalib_tpu.io import sim as jsim
+from vicalib_tpu.dist import sharded as jsh
 from vicalib_tpu.solver import lm as jlm
 from vicalib_tpu.solver import problem as jp
 from vicalib_tpu.solver import stages as jst
@@ -34,6 +42,8 @@ from vicalib_tpu.solver.build import refine_offset_guess as j_refine
 from vicalib_tpu.solver.residuals import ImuFactors as JImu
 from vicalib_tpu.solver.residuals import imu_residuals_and_jacobians as j_rj
 from vicalib_tpu_torch import convert
+from vicalib_tpu_torch.dist import ShardedLMStep, make_mesh
+from vicalib_tpu_torch.dist import sharded as tsh
 from vicalib_tpu_torch.solver import lm as tlm
 from vicalib_tpu_torch.solver import problem as tp
 from vicalib_tpu_torch.solver import stages as tst
@@ -359,3 +369,116 @@ def test_weight_refresh_cadence():
     assert tlm._get_weights(data, None, seed, False, (1.0, 1.0),
                             carry_weight=carry) is carry
     assert tlm._get_weights(data, None, seed, False, (1.0, 1.0)) is seed
+
+
+def test_row_major_assemble_with_imu_matches_jax(vi):
+    """Each camera's rows shuffled (not frame-major), the IMU factors as
+    they are: the port's row-major assembly against JAX's assembly of the
+    frame-major problem (JAX's two layouts agree to ~3e-14 of the largest
+    entry on this problem, measured; the jitted program is the one
+    test_assemble_with_imu_matches_jax compiled)."""
+    fj, ft = _flags(inertial_active=True, rotation_only=False,
+                    bias_active=True, scale_active=True)
+    data_j = vi["data_j"]
+    rng = np.random.default_rng(11)
+    data_t = dataclasses.replace(vi["data_t"], obs=[
+        dataclasses.replace(o, frame_idx=o.frame_idx[p], p_w=o.p_w[p],
+                            p_c=o.p_c[p], valid=o.valid[p],
+                            points_per_frame=None)
+        for o in vi["data_t"].obs
+        for p in [torch.as_tensor(rng.permutation(len(o.frame_idx)))]])
+    (fm_j, sm_j), (fm_t, sm_t) = _masks(data_j, data_t, fj, ft)
+    W = J_WEIGHTS(vi["state_j"], data_j.imu)
+    out_j = J_ASSEMBLE(vi["state_j"], data_j, W, fm_j, sm_j,
+                       jnp.asarray(1.0), jnp.asarray(False))
+    W_t = torch.as_tensor(np.asarray(W))
+    one = torch.tensor(1.0, dtype=F64)
+    out_t = ta.assemble(vi["state_t"], data_t, W_t, fm_t, sm_t, one, False)
+    for name, a, b in zip(["D", "U", "Hfs", "Hss", "gf", "gs", "cost",
+                           "n_res"], out_j, out_t):
+        _rel_close(b.numpy(), a, 1e-9)
+    cj = J_COSTS(vi["state_j"], data_j, W, jnp.asarray(1.0),
+                 jnp.asarray(False))
+    ct = ta.robust_costs(vi["state_t"], data_t, W_t, one, False)
+    for a, b in zip(cj, ct):
+        _rel_close(b.numpy(), a, 1e-12)
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_shard_problem_matches_jax(vi, n_shards):
+    """Contiguous shards, padded at the end (3 shards do not divide the
+    rows): equal to JAX's array for array, stacked as JAX stacks them."""
+    sh_j = jsh.shard_problem(vi["data_j"], n_shards)
+    sh_t = tsh.shard_problem(vi["data_t"], n_shards)
+    assert len(sh_t) == len(sh_j) == n_shards
+    st_j, st_t = jsh.stack_shards(sh_j), tsh.stack_shards(sh_t)
+    for f in ("obs_frame_idx", "obs_p_w", "obs_p_c", "obs_valid"):
+        for a, b in zip(getattr(st_j, f), getattr(st_t, f)):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a), f)
+    for f, a in st_j.imu.items():
+        np.testing.assert_array_equal(st_t.imu[f].numpy(), np.asarray(a), f)
+    for j, t in zip(sh_j, sh_t):
+        assert t.n_frames == j.n_frames
+        assert dataclasses.asdict(t.layout) == dataclasses.asdict(j.layout)
+        assert all(o.points_per_frame is None for o in t.obs)
+        assert not t.imu.consecutive
+
+
+@pytest.fixture(scope="module")
+def jax_step(vi):
+    """JAX's single-device LM step at the VI fixture's state (the inputs of
+    test_one_lm_step_with_imu_matches_jax, so its jitted program)."""
+    fj, ft = _flags(inertial_active=True, rotation_only=False,
+                    bias_active=True)
+    (fm_j, sm_j), masks_t = _masks(vi["data_j"], vi["data_t"], fj, ft)
+    W = J_WEIGHTS(vi["state_j"], vi["data_j"].imu)
+    out = jlm.lm_step_jit(
+        vi["data_j"], vi["state_j"], jnp.asarray(1e-4), W, fm_j, sm_j,
+        jnp.asarray(1.0), jnp.asarray(False), jlm.LMOptions())
+    return out, torch.as_tensor(np.asarray(W)), masks_t
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3])
+def test_sharded_lm_step_matches_jax(vi, jax_step, n_shards):
+    (new_j, lam_j, cost_j, trial_j, acc_j, gnorm_j), W, (fm_t, sm_t) = \
+        jax_step
+    sh = ShardedLMStep(vi["data_t"], mesh=make_mesh(n_shards, device="cpu"))
+    assert sh.n_shards == n_shards
+    (new_t, lam_t, _, cost_t, trial_t, acc_t, gnorm_t, _) = sh.make_step()(
+        vi["state_t"], torch.tensor(1e-4, dtype=F64),
+        torch.tensor(2.0, dtype=F64), sh.sharded_weight(W), fm_t, sm_t,
+        torch.tensor(1.0, dtype=F64), False)
+    assert bool(acc_t) == bool(acc_j)
+    np.testing.assert_allclose(float(cost_t), float(cost_j), rtol=1e-12)
+    np.testing.assert_allclose(float(trial_t), float(trial_j), rtol=1e-8)
+    np.testing.assert_allclose(float(lam_t), float(lam_j), rtol=1e-6)
+    np.testing.assert_allclose(float(gnorm_t), float(gnorm_j), rtol=1e-8)
+    _states_close(new_t, new_j, 1e-9)
+
+
+def test_run_staged_sharded_matches_jax(vi, staged):
+    """The port's staged schedule over 2 shards against JAX's
+    single-device staged result, with tests/test_dist.py's tolerances for
+    JAX's own sharded schedule."""
+    res_j = staged[0]
+    fj, ft = _flags(optimize_time_offset=True)
+    # one intra-op thread: the solve is thousands of tiny ops, which run
+    # faster without thread hand-offs, most of all on a busy machine
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res_t = tst.run_staged(_to_t(vi["state0_j"]), vi["data_t"], ft,
+                               tlm.LMOptions(function_tolerance=1e-4),
+                               mesh=make_mesh(2, device="cpu"))
+    finally:
+        torch.set_num_threads(threads)
+    assert [r[0] for r in res_t.stages_run] == \
+        [r[0] for r in res_j.stages_run]
+    sj, st = res_j.state, res_t.state
+    np.testing.assert_allclose(res_t.cam_rmse, res_j.cam_rmse, rtol=2e-3)
+    np.testing.assert_allclose(st.q_ck.numpy(), np.asarray(sj.q_ck),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(st.biases.numpy(), np.asarray(sj.biases),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(float(st.time_offset),
+                               float(sj.time_offset), rtol=0, atol=1e-5)

@@ -4,10 +4,8 @@ Reference analog: src/main.cc:13-31 + the gflags inventory.  Accepts both
 ``--flag value`` and gflags-style ``-flag value`` / ``-noflag`` booleans
 (README.md:56's negation convention).
 
-Runs on the CUDA device (the engine raises when there is none).  The
-multi-device flags (-n_shards, -coordinator_address, -num_processes) are
-not ported yet and raise NotImplementedError.  Usage example, a stereo
-camera-IMU rig:
+Runs on the CUDA device (the engine raises when there is none).  Usage
+example, a stereo camera-IMU rig:
   python -m vicalib_tpu_torch.cli -models linear,linear \
       -cam 'file://[<dir0>/*.pgm,<dir1>/*.pgm]' -imu 'csv://<imu_dir>' \
       -nouse_only_when_static
@@ -17,6 +15,11 @@ report.html`` rewrites an HTML report after each chunk and ``-status_port
 solves: ``-checkpoint_file state.npz`` after every stage, ``-resume_file
 state.npz`` to continue; ``-profile_dir <dir>`` writes a torch.profiler
 Chrome trace of the solve.
+Several devices: ``-n_shards N`` splits the solve's observations and IMU
+factors into N shards in one process; several processes (one command each)
+join with ``-coordinator_address host0:1234 -num_processes 2 -process_id
+$RANK``, each on ``cuda:(rank % device_count)``, and only process 0 writes
+the outputs.
 """
 from __future__ import annotations
 
@@ -78,6 +81,23 @@ def main(argv=None, device="cuda") -> int:
         format="%(levelname).1s %(name)s: %(message)s")
     log = logging.getLogger("vicalib")
 
+    if not cfg.coordinator_address:
+        return _run(cfg, log)
+    # join the process group before any work on the device; the shards
+    # then span every process (dist/multihost.py)
+    from .dist import multihost
+    try:
+        cfg.device = str(multihost.initialize(
+            cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+            device=device))
+        if cfg.n_shards <= 1:
+            cfg.n_shards = multihost.world_size()
+        return _run(cfg, log)
+    finally:
+        multihost.shutdown()
+
+
+def _run(cfg, log) -> int:
     if not cfg.cam:
         if cfg.output_pattern_file:
             from .engine import make_grid
@@ -99,7 +119,12 @@ def main(argv=None, device="cuda") -> int:
     for c, name in enumerate(result.model_names):
         log.info("camera %d (%s): params %s", c, name,
                  result.stats.cam_intrinsics[c])
-    log.info("wrote %s; success=%s", cfg.output, result.success)
+    from .dist.multihost import is_primary, rank
+    if is_primary():
+        log.info("wrote %s; success=%s", cfg.output, result.success)
+    else:
+        log.info("process %d wrote nothing (process 0 writes the outputs); "
+                 "success=%s", rank(), result.success)
     return 0 if result.success else 2
 
 

@@ -2,9 +2,7 @@
 
 Every field corresponds to a DEFINE_* in the reference (vicalib-engine.cc:30-104
 and vicalib-task.cc:16-51); names and defaults match so command lines port
-directly (the CLI also accepts gflags-style ``-flag``/``-noflag``).  Fields
-that reach a part not ported yet make the engine raise NotImplementedError
-(engine.UNPORTED_FLAGS).
+directly (the CLI also accepts gflags-style ``-flag``/``-noflag``).
 """
 from __future__ import annotations
 
@@ -103,7 +101,7 @@ class VicalibConfig:
     device: str = "cuda"
     n_shards: int = 0               # 0 = single device
     # multi-host runtime (dist/multihost.py): set all three on every
-    # process; n_shards then defaults to the global device count
+    # process; n_shards then defaults to the number of processes
     coordinator_address: str = ""   # "host0:port" of process 0
     num_processes: int = 0
     process_id: int = -1

@@ -12,8 +12,9 @@ Everything runs on the engine's explicit device, ``"cuda"`` unless the
 caller passes ``device="cpu"``.  ``-stream_chunk N`` replaces the single
 solve by chunked, warm-started re-solves (streaming.py) that publish stats,
 rewrite ``-report_file`` and push a scene to ``-status_port`` after every
-chunk.  The parts not ported yet (the multi-device flags) raise
-NotImplementedError when a flag asks for them.
+chunk.  ``-n_shards`` and a multi-process run (cli.py) split the solve over
+the shards of a mesh (dist/); every process runs the whole pipeline and
+only the primary writes files.
 """
 from __future__ import annotations
 
@@ -38,13 +39,6 @@ from .targets.grid_match import match_target
 from .utils import BoxcarFilter, CalibrationStats, CalibrationStatus
 
 log = logging.getLogger("vicalib_tpu_torch.engine")
-
-# (config field, predicate "the flag asks for it", ROADMAP queue item)
-UNPORTED_FLAGS = (
-    ("n_shards", lambda v: v > 1, "dist/ -> torch.distributed"),
-    ("coordinator_address", bool, "dist/ -> torch.distributed"),
-    ("num_processes", lambda v: v > 0, "dist/ -> torch.distributed"),
-)
 
 
 @dataclasses.dataclass
@@ -209,11 +203,6 @@ def imu_calibration_differs(cfg, last_biases, cur_biases):
 class VicalibEngine:
     def __init__(self, config: VicalibConfig, update_stats_callback=None,
                  device=None):
-        for name, asks, item in UNPORTED_FLAGS:
-            if asks(getattr(config, name)):
-                raise NotImplementedError(
-                    f"-{name} is not ported yet; see ROADMAP.md queue 1 "
-                    f"({item})")
         self.cfg = config
         self.device = resolve_device(device if device is not None
                                      else config.device)
@@ -247,7 +236,7 @@ class VicalibEngine:
 
     def _run_streaming(self, cfg, model_names, sel_times, pixels, visible,
                        imu, widths, heights, dtype, options,
-                       time_offset_guess, stats):
+                       time_offset_guess, stats, write_outputs=True):
         """-stream_chunk N: incremental calibration during (replayed)
         capture — the reference's background-solver live mode
         (vicalib-engine.cc:375-433).  Frames are fed in chunks of N with
@@ -270,7 +259,7 @@ class VicalibEngine:
             log.info("stream chunk: %d/%d frames rmse %s iters %d %.2fs",
                      chunk.n_frames, F, chunk.cam_rmse, chunk.iterations,
                      chunk.wall_s)
-            if cfg.report_file:
+            if cfg.report_file and write_outputs:
                 # rewrite the HTML report after every chunk so a browser
                 # pointed at it shows the run converging (the batch-side
                 # replacement for the reference's live Pangolin panels,
@@ -338,8 +327,10 @@ class VicalibEngine:
                                            n_frames=F)
 
     def run(self) -> EngineResult:
+        from .dist.multihost import is_primary
+
         self._status_server = None
-        if self.cfg.status_port > 0:
+        if self.cfg.status_port > 0 and is_primary():
             # live observability (vicalib-engine.cc:108, 388-432 polls
             # CalibrationStats for the GUI every 30 ms): serve the latest
             # stats + the (per-chunk rewritten) HTML report over HTTP
@@ -364,6 +355,7 @@ class VicalibEngine:
                 self.update_stats = inner
 
     def _run(self) -> EngineResult:
+        from .dist.multihost import is_primary, world_size
         from .solver import StageFlags, run_staged
         from .solver.build import build_problem
         from .solver.lm import LMOptions
@@ -402,6 +394,9 @@ class VicalibEngine:
         C = camera.num_channels
         model_names, preload = self._model_names(C)
         stats = CalibrationStats(C, status=CalibrationStatus.CAPTURING)
+        # several processes: every one runs the engine, only the primary
+        # writes files, so processes sharing a directory do not race
+        write_outputs = is_primary()
 
         # ---- capture loop: static-motion gating + frame selection
         # (vicalib-engine.cc:497-555)
@@ -468,9 +463,9 @@ class VicalibEngine:
         pixels = np.stack(pixels)
         visible = np.stack(visible)
         timings["detect"] = time.time() - t0
-        if cfg.output_conics:
+        if cfg.output_conics and write_outputs:
             out_io.write_conics_csv("conics.csv", conic_rows_all)
-        if cfg.clip_good:
+        if cfg.clip_good and write_outputs:
             good = visible.any(axis=2).all(axis=0)
             np.savez_compressed(
                 "good_frames.npz",
@@ -520,7 +515,8 @@ class VicalibEngine:
             # time-offset refinement: PnP poses from a visual-only build,
             # then raw-stream gyro/vision alignment, so streaming handles
             # clock skew beyond the first-sample guess as batch mode does
-            for flag_set, name in ((bool(cfg.checkpoint_file),
+            for flag_set, name in ((cfg.n_shards > 1, "-n_shards"),
+                                   (bool(cfg.checkpoint_file),
                                     "-checkpoint_file"),
                                    (bool(cfg.resume_file), "-resume_file")):
                 if flag_set:
@@ -558,6 +554,11 @@ class VicalibEngine:
             fix_intrinsics=not cfg.calibrate_intrinsics)
         options = LMOptions(max_iters=cfg.max_iters,
                             function_tolerance=cfg.function_tolerance)
+        mesh = None
+        if (cfg.n_shards > 1 or world_size() > 1) and cfg.stream_chunk == 0:
+            from .dist import make_mesh
+            mesh = make_mesh(cfg.n_shards if cfg.n_shards > 1 else None,
+                             device=dev.type)
         resume = False
         if cfg.resume_file and cfg.stream_chunk == 0:
             from .checkpoint import load_checkpoint
@@ -584,17 +585,27 @@ class VicalibEngine:
                 result, data = self._run_streaming(
                     cfg, model_names, sel_times, pixels, visible, imu,
                     widths, heights, dtype, options, time_offset_guess,
-                    stats)
+                    stats, write_outputs=write_outputs)
             else:
                 result = run_staged(
                     state, data, flags, options,
                     do_remove_outliers=cfg.remove_outliers,
                     outlier_threshold=cfg.outlier_threshold,
                     gyro_sigma=cfg.gyro_sigma, accel_sigma=cfg.accel_sigma,
-                    checkpoint_path=cfg.checkpoint_file or None,
-                    compute_cov=cfg.compute_covariance, resume=resume)
+                    checkpoint_path=(cfg.checkpoint_file or None)
+                    if write_outputs else None,
+                    compute_cov=cfg.compute_covariance, mesh=mesh,
+                    resume=resume)
             _sync(dev)
         timings["solve"] = time.time() - t0
+        if mesh is not None:
+            st = mesh.stats
+            log.info("sharded solve: %s; %d collectives, %d bytes, %.3f s",
+                     mesh.describe(), st.calls, st.bytes, st.seconds,
+                     extra={"collectives": dict(
+                         placement=mesh.describe(), calls=st.calls,
+                         bytes=st.bytes, seconds=st.seconds,
+                         iterations=result.total_iterations)})
         if prof is not None:
             os.makedirs(cfg.profile_dir, exist_ok=True)
             trace = os.path.join(cfg.profile_dir,
@@ -631,7 +642,7 @@ class VicalibEngine:
         self.update_stats(stats.copy())
 
         # ---- result log (PrintResults analog, -output_log_file)
-        if cfg.output_log_file:
+        if cfg.output_log_file and write_outputs:
             with open(cfg.output_log_file, "w") as f:
                 f.write("-" * 42 + "\n")
                 for c in range(C):
@@ -668,17 +679,19 @@ class VicalibEngine:
                             np.array2string(result.covariance, precision=4))
 
         # ---- outputs (vicalib-engine.cc:355-373, 406-422)
-        out_io.write_cameras_xml(
-            cfg.output, model_names, stats.cam_intrinsics, stats.t_ck_vec,
-            widths, heights, calibrate_imu=cfg.calibrate_imu)
-        q_wk = state.q_wk.cpu().numpy()
-        t_wk = state.t_wk.cpu().numpy()
-        if cfg.print_poses:
-            good = visible.any(axis=(0, 2))
-            out_io.write_poses_txt("poses.txt", q_wk, t_wk, good=good)
-        if cfg.save_poses:
-            out_io.write_poses_csv("poses.csv", q_wk, t_wk)
-        if cfg.report_file:
+        if write_outputs:
+            out_io.write_cameras_xml(
+                cfg.output, model_names, stats.cam_intrinsics,
+                stats.t_ck_vec, widths, heights,
+                calibrate_imu=cfg.calibrate_imu)
+            q_wk = state.q_wk.cpu().numpy()
+            t_wk = state.t_wk.cpu().numpy()
+            if cfg.print_poses:
+                good = visible.any(axis=(0, 2))
+                out_io.write_poses_txt("poses.txt", q_wk, t_wk, good=good)
+            if cfg.save_poses:
+                out_io.write_poses_csv("poses.csv", q_wk, t_wk)
+        if cfg.report_file and write_outputs:
             from .report import write_html_report
             write_html_report(cfg.report_file, model_names, state, data,
                               result, stats, widths, heights,

@@ -2,9 +2,12 @@
 
 Cameras come in through HAL-style URIs: ``file://<dir>/images/*.pgm``, and
 multi-channel rigs use one glob per channel, ``file://[glob0,glob1]``, like
-HAL's split-image URIs.  IMU streams come in as ``csv://<dir>``
-(accel.txt / gyro.txt / timestamp.txt).  Host code (numpy); the frames go
-to the device in ``engine._detect_all``.
+HAL's split-image URIs; ``deinterlace://<inner>`` and
+``rectify:[file=cameras.xml]//<inner>`` wrap another source, and
+``uvc:[dev=/dev/video0,...]//`` captures from a V4L2 camera (io/uvc.py).
+IMU streams come in as ``csv://<dir>`` (accel.txt / gyro.txt /
+timestamp.txt).  Host code (numpy); the frames go to the device in
+``engine._detect_all``.
 
 PGM (P2/P5) parsing is in Python; the native host library (native/), when
 present, decodes PGM batches on a thread pool; PNG/JPG need PIL.
@@ -13,10 +16,15 @@ from __future__ import annotations
 
 import dataclasses
 import glob as globlib
+import logging
 import os
 import re
 
 import numpy as np
+
+from .uvc import UvcSource
+
+log = logging.getLogger("vicalib_tpu_torch.sources")
 
 
 def read_pgm(path: str) -> np.ndarray:
@@ -196,6 +204,107 @@ class ImuSource:
             self.times[:n], self.accel[:n], self.gyro[:n])
 
 
+class _Wrapper:
+    """A source over another source: it forwards the clock and frame rate
+    of the source it wraps (what the engine reads besides the frames)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.n_frames = inner.n_frames
+
+    @property
+    def frame_rate(self):
+        return self.inner.frame_rate
+
+    @frame_rate.setter
+    def frame_rate(self, rate):
+        self.inner.frame_rate = rate
+
+
+class DeinterlaceSource(_Wrapper):
+    """``deinterlace://<inner>``: split each interlaced frame's even/odd
+    scanlines into a 2-channel rig (the reference's HAL deinterlace
+    source, README.md:34-42)."""
+
+    @property
+    def num_channels(self):
+        return 2 * self.inner.num_channels
+
+    def channel_stamps(self, c, system=False):
+        return self.inner.channel_stamps(c // 2, system)
+
+    def read_batch(self, channel, indices):
+        inner_c, field = divmod(channel, 2)
+        batch = self.inner.read_batch(inner_c, indices)
+        return [im[field::2] for im in batch]
+
+
+def rectify_map(model_name, params, width, height):
+    """(H, W, 2) source pixel of every output pixel of a rectified image:
+    the output pixel's ray through the pinhole K of ``params`` projected
+    through the distorted model (float64, on the CPU)."""
+    import torch
+
+    from ..cameras.models import get_model
+
+    params = np.asarray(params, dtype=np.float64)
+    fu, fv, u0, v0 = params[:4]
+    u, v = np.meshgrid(np.arange(width, dtype=np.float64),
+                       np.arange(height, dtype=np.float64))
+    rays = np.stack([(u - u0) / fu, (v - v0) / fv, np.ones_like(u)],
+                    axis=-1)
+    src = get_model(model_name).project(
+        torch.as_tensor(rays.reshape(-1, 3)), torch.as_tensor(params))
+    return src.numpy().reshape(height, width, 2)
+
+
+class RectifySource(_Wrapper):
+    """``rectify:[file=cameras.xml]//<inner>``: undistort every channel to
+    its linear (pinhole-K) model via a precomputed bilinear remap (the
+    reference's HAL rectify source, README.md:34-42).  The table is built
+    once per channel from the rig file's camera model
+    (:func:`rectify_map`) and applied on the host."""
+
+    def __init__(self, inner, rig_file: str):
+        from .outputs import read_cameras_xml
+
+        super().__init__(inner)
+        cams = read_cameras_xml(rig_file)
+        if len(cams) < inner.num_channels:
+            raise ValueError(
+                f"rig file {rig_file} has {len(cams)} cameras; "
+                f"source has {inner.num_channels} channels")
+        self._maps = [
+            rectify_map(cam["model"], cam["params"], int(cam["width"]),
+                        int(cam["height"])).astype(np.float32)
+            for cam in cams[:inner.num_channels]]
+
+    @property
+    def num_channels(self):
+        return self.inner.num_channels
+
+    def channel_stamps(self, c, system=False):
+        return self.inner.channel_stamps(c, system)
+
+    @staticmethod
+    def _remap(img, src):
+        h, w = img.shape[:2]
+        x = np.clip(src[..., 0], 0, w - 1.001)
+        y = np.clip(src[..., 1], 0, h - 1.001)
+        x0 = x.astype(np.int32)
+        y0 = y.astype(np.int32)
+        fx = x - x0
+        fy = y - y0
+        im = img.astype(np.float32)
+        top = im[y0, x0] * (1 - fx) + im[y0, x0 + 1] * fx
+        bot = im[y0 + 1, x0] * (1 - fx) + im[y0 + 1, x0 + 1] * fx
+        return (top * (1 - fy) + bot * fy).astype(img.dtype)
+
+    def read_batch(self, channel, indices):
+        batch = self.inner.read_batch(channel, indices)
+        return [self._remap(im, self._maps[channel]) for im in batch]
+
+
 def associate_channels(camera, system: bool = False, tol: float = None):
     """Nearest-time superframe association for async multi-camera rigs.
 
@@ -233,17 +342,38 @@ def associate_channels(camera, system: bool = False, tol: float = None):
     return ref[ok], sel[:, ok]
 
 
-def parse_camera_uri(uri: str) -> CameraSource:
-    """HAL-style camera URIs: ``file://<glob>``, ``file://[g0,g1]`` or a
-    bare glob.  The other schemes of the reference (``deinterlace://``,
-    ``rectify:``, ``uvc:``) are not ported yet (ROADMAP, queue 1, capture
-    sources)."""
+def parse_camera_uri(uri: str):
+    """HAL-style camera URIs (README.md:34-42): ``file://<glob>`` /
+    ``file://[g0,g1]`` / bare glob, optionally wrapped by
+    ``deinterlace://...`` and ``rectify:[file=cameras.xml]//...``.
+    ``uvc:[dev=/dev/video0,num=100,w=640,h=480,fps=30]//`` captures live
+    from a V4L2 USB camera (io/uvc.py) when its frames are first read, then
+    replays them through the same pipeline; wrapped in ``deinterlace://``
+    or ``rectify:``, it captures here, while the URI is parsed."""
     m = re.match(r"^(\w+):(\[[^\]]*\])?//(.*)$", uri)
     scheme = m.group(1).lower() if m else "file"
-    if scheme != "file":
-        raise NotImplementedError(
-            f"camera URI scheme {scheme!r} is not ported yet; see ROADMAP.md "
-            "queue 1 (capture sources)")
+    opts = {}
+    if m and m.group(2):
+        for kv in m.group(2).strip("[]").split(","):
+            if "=" in kv:
+                k, v = kv.split("=", 1)
+                opts[k.strip()] = v.strip()
+    if scheme == "uvc":
+        path = m.group(3)
+        return UvcSource(device=opts.get("dev", path or "/dev/video0"),
+                         num=int(opts.get("num", 100)),
+                         width=int(opts.get("w", 0)),
+                         height=int(opts.get("h", 0)),
+                         fps=float(opts.get("fps", 30.0)))
+    if scheme in ("deinterlace", "rectify"):
+        inner = parse_camera_uri(m.group(3))
+        if isinstance(inner, UvcSource):
+            log.info("%s over uvc: capturing %d frames from %s now, while "
+                     "the camera URI is parsed", scheme, inner.num,
+                     inner.device)
+        if scheme == "deinterlace":
+            return DeinterlaceSource(inner)
+        return RectifySource(inner, opts.get("file", "cameras.xml"))
     path = m.group(3) if m else uri
     if path.startswith("["):
         globs = [g.strip() for g in path.strip("[]").split(",")]

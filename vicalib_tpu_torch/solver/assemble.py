@@ -1,13 +1,16 @@
 """Normal-equation assembly into the structured arrow-plus-chain system.
 
 The reference's analog is Ceres's Jacobian evaluation + normal-equations
-construction; here each camera's frame-major Gram blocks
-(residuals.reproj_frame_gram_fast) are placed straight into the frame
-diagonal blocks, the frame-shared coupling and the shared block (see
-schur.py).  IMU factors add to the frame diagonal and super-diagonal blocks
-and to the 15 inertial shared columns: consecutive factors through one
-(K, 34, 34) Gram placed by shifted concatenation, any other layout through
-``index_add`` (segment sums over frame indices).
+construction; here each camera's per-frame Gram blocks are placed straight
+into the frame diagonal blocks, the frame-shared coupling and the shared
+block (see schur.py).  Frame-major observations get them from one batched
+product per frame (residuals.reproj_frame_gram_fast); any other row layout
+(the shards of dist/sharded.py) from per-row Grams summed over
+``frame_idx`` with ``index_add``.  IMU factors add to the frame diagonal
+and super-diagonal blocks and to the 15 inertial shared columns:
+consecutive factors through one (K, 34, 34) Gram placed by shifted
+concatenation, any other layout through ``index_add`` (segment sums over
+frame indices).
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ import torch
 import torch.nn.functional as F_
 
 from .problem import CalibState, SharedLayout
-from .residuals import (ImuFactors, imu_residuals,
+from .residuals import (CameraObs, ImuFactors, imu_residuals,
                         imu_residuals_and_jacobians, reproj_frame_gram_fast,
-                        reproj_frame_sq, reproj_residuals)
+                        reproj_frame_sq, reproj_residuals,
+                        reproj_residuals_and_jacobians)
 from .robust import Cauchy, SoftL1
 
 
@@ -35,6 +39,23 @@ class ProblemData:
 def _seg_sum(x, idx, n):
     """Sum the rows of x into n segments by index (segment_sum)."""
     return x.new_zeros((n,) + tuple(x.shape[1:])).index_add(0, idx, x)
+
+
+def _row_gram(state: CalibState, obs: CameraObs, cam: int, model_name: str,
+              col_mask, reproj_loss, n_frames: int):
+    """The per-frame Gram blocks of observations in any row order: (s (N,)
+    raw squared errors, G (F, k+1, k+1)) laid out as
+    reproj_frame_gram_fast's.  Each row's residual and Jacobian are scaled
+    by sqrt(rho'(s)) (IRLS), so every block is a plain J^T J / J^T r sum
+    over the frame's rows."""
+    r, Jp, Jr, Jt, Ji = reproj_residuals_and_jacobians(state, obs, cam,
+                                                       model_name)
+    s = torch.sum(r * r, dim=1)
+    w = reproj_loss.weight(s)
+    J = torch.cat([Jp, Jr, Jt, Ji], dim=2) * col_mask[obs.frame_idx][:, None]
+    J_aug = torch.cat([J, r[:, :, None]], dim=2) * w[:, None, None]
+    G = _seg_sum(J_aug.transpose(1, 2) @ J_aug, obs.frame_idx, n_frames)
+    return s, G
 
 
 def robust_costs(state: CalibState, data: ProblemData, weight_sqrt,
@@ -91,15 +112,16 @@ def assemble(state: CalibState, data: ProblemData, weight_sqrt,
     for c, obs in enumerate(data.obs):
         c0 = int(layout.cam_rot[c])
         ncols = 6 + int(layout.n_intr[c])
-        if obs.points_per_frame is None:
-            raise NotImplementedError(
-                "assembly takes frame-major observations (points_per_frame "
-                "set, as build_problem makes them)")
         col_mask = torch.cat(
             [frame_mask[:, :6],
              shared_mask[c0:c0 + ncols].expand(F, ncols)], dim=1)
-        s, G = reproj_frame_gram_fast(state, obs, c, layout.model_names[c],
-                                      col_mask, reproj_loss)
+        if obs.points_per_frame is not None:
+            s, G = reproj_frame_gram_fast(state, obs, c,
+                                          layout.model_names[c], col_mask,
+                                          reproj_loss)
+        else:
+            s, G = _row_gram(state, obs, c, layout.model_names[c], col_mask,
+                             reproj_loss, F)
         n_res = n_res + torch.sum(obs.valid)
         cost = cost + 0.5 * torch.sum(reproj_loss.rho(s))
         D = D + F_.pad(G[:, :6, :6], (0, 3, 0, 3))

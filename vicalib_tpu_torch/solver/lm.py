@@ -126,22 +126,31 @@ def _lm_step(data, state, lam, nu, weight_sqrt, fmask, smask, inertial_scale,
 
     The normal equations are assembled once; the damping candidates are
     solved, retracted and cost-evaluated as one batch dimension, and the
-    best admissible trial is taken via :func:`select_candidate`."""
-    D, U, Hfs, Hss, gf, gs, cost, _ = assemble(
-        state, data, weight_sqrt, fmask, smask, inertial_scale,
-        rotation_only)
+    best admissible trial is taken via :func:`select_candidate`.  ``data``
+    is a ProblemData, or a dist.sharded.ShardedProblem with
+    ``weight_sqrt`` in its sharded layout (its shards' sums)."""
+    whole = isinstance(data, ProblemData)
+    D, U, Hfs, Hss, gf, gs, cost, _ = (
+        assemble(state, data, weight_sqrt, fmask, smask, inertial_scale,
+                 rotation_only) if whole else
+        data.assemble(state, weight_sqrt, fmask, smask, inertial_scale,
+                      rotation_only))
     lams = candidate_lams(lam, options)
     dxf_b, dxs_b, pred_b = vmap(
         lambda l: schur_solve(D, U, Hfs, Hss, gf, gs, damping=l))(lams)
-    trial_b = vmap(
+    trial_b = CalibState(*vmap(
         lambda df, ds: retract(state, data.layout, df * fmask, ds * smask))(
-        dxf_b, dxs_b)
-    cost_b = vmap(
-        lambda s: robust_costs(CalibState(*s), data, weight_sqrt,
-                               inertial_scale, rotation_only)[0])(
-        tuple(trial_b))
-    return select_candidate(state, CalibState(*trial_b), cost, cost_b,
-                            pred_b, lams, lam, nu, gf, gs, options)
+        dxf_b, dxs_b))
+    if whole:
+        cost_b = vmap(
+            lambda s: robust_costs(CalibState(*s), data, weight_sqrt,
+                                   inertial_scale, rotation_only)[0])(
+            tuple(trial_b))
+    else:
+        cost_b = data.trial_costs(trial_b, weight_sqrt, inertial_scale,
+                                  rotation_only)
+    return select_candidate(state, trial_b, cost, cost_b, pred_b, lams, lam,
+                            nu, gf, gs, options)
 
 
 def _get_weights(data, state, seed_weight, use_cov_weights, sigmas,
@@ -162,7 +171,10 @@ def fused_solve(data: ProblemData, state: CalibState, fmask, smask,
                 inertial_scale, rotation_only, use_cov_weights, seed_weight,
                 options: LMOptions, sigmas):
     """Full LM solve on the device.  Returns (state, info_vec): the packed
-    [final_cost, cam_sq (C), cam_cnt (C), iterations, converged] vector."""
+    [final_cost, cam_sq (C), cam_cnt (C), iterations, converged] vector.
+    ``data`` is a ProblemData or a dist.sharded.ShardedProblem; the weights
+    are computed on the full problem either way."""
+    whole = isinstance(data, ProblemData)
     with full_precision_matmul():
         dtype = state.t_wk.dtype
         dev = state.t_wk.device
@@ -178,8 +190,10 @@ def fused_solve(data: ProblemData, state: CalibState, fmask, smask,
                              sigmas, carry_weight=W,
                              refresh=it % options.weight_refresh == 0)
             (state, lam_new, nu, cost, trial_cost, accept, gnorm,
-             pred_max) = _lm_step(data, state, lam, nu, W, fmask, smask,
-                                  inertial_scale, rotation_only, options)
+             pred_max) = _lm_step(data, state, lam, nu,
+                                  W if whole else data.shard_weight(W),
+                                  fmask, smask, inertial_scale,
+                                  rotation_only, options)
             ftol_gate = options.function_tolerance * cost
             converged = accept & ((cost - trial_cost) < ftol_gate)
             # even the best candidate's model-predicted reduction is below
@@ -195,9 +209,13 @@ def fused_solve(data: ProblemData, state: CalibState, fmask, smask,
             lam = lam_new
             it += 1
             done = bool(converged)           # the one host read per iteration
+            if not whole:
+                done = data.agree(done)      # every rank takes rank 0's
         W = _get_weights(data, state, seed_weight, use_cov_weights, sigmas)
-        final_cost, cam_sq, cam_cnt = robust_costs(
-            state, data, W, inertial_scale, rotation_only)
+        final_cost, cam_sq, cam_cnt = (
+            robust_costs(state, data, W, inertial_scale, rotation_only)
+            if whole else data.robust_costs(state, data.shard_weight(W),
+                                            inertial_scale, rotation_only))
         info_vec = torch.cat([
             final_cost[None].to(dtype), cam_sq.to(dtype), cam_cnt.to(dtype),
             torch.tensor([it, float(done)], dtype=dtype, device=dev)])
@@ -228,10 +246,15 @@ def seed_weights(K, dtype, device):
 
 class LMSolver:
     """Binds a ProblemData (tensors already on their device) to the LM
-    loop."""
+    loop.  With ``mesh`` the observations and IMU factors are split over
+    the mesh's shards (dist.sharded.shard_problem_arrays) and every
+    iteration sums the shards' systems."""
 
     def __init__(self, data: ProblemData, options: LMOptions = LMOptions(),
-                 sigmas=None):
+                 sigmas=None, mesh=None):
+        if mesh is not None:
+            from ..dist.sharded import shard_problem_arrays
+            data = shard_problem_arrays(data, mesh)
         self.data = data
         self.options = options
         self.sigmas = sigmas

@@ -91,13 +91,10 @@ def reproj_frame_sq(state: CalibState, obs: CameraObs, cam: int,
     return torch.sum(r * r, dim=-1)
 
 
-def reproj_frame_gram_fast(state: CalibState, obs: CameraObs, cam: int,
-                           model_name: str, col_mask, reproj_loss):
-    """Analytic-geometry frame-major Gram assembly.
-
-    Returns (s (F, P) raw squared errors, G (F, k+1, k+1)) where G's last
-    row/column holds J^T r and the leading k x k block is the masked,
-    robust-weighted J^T J, columns [pose(6) | rot(3) | trans(3) | intr].
+def _reproj_jacobian(model, state: CalibState, cam: int, p_k, p_c, valid):
+    """Residuals and tangent Jacobians of rows with rig-frame points p_k
+    (..., 3): r (..., 2) valid-masked, p_cam (..., 3) and J (..., 2, k),
+    columns [pose(6) | rot(3) | trans(3) | intr].
 
     Derivation (right-multiplicative retractions, tangent [u(3), w(3)]):
       T_wk' = T_wk exp([u, w])  =>  p_k = R_wk^T (p_w - t_wk) perturbs as
@@ -106,39 +103,68 @@ def reproj_frame_gram_fast(state: CalibState, obs: CameraObs, cam: int,
       dp_c/dp_ck = I.  With A = dpi/dp_c and B = A R_ck:
       J = [ -B | B hat(p_k) | -B hat(p_k) | A | dpi/dintr ].
     """
-    model = get_model(model_name)
     n_intr = model.n_params
-    F = state.t_wk.shape[0]
-    P = obs.points_per_frame
-    pw_f, pc_f, valid_f = _frame_major(obs, F)
-    k = 12 + n_intr
     intr = state.intr[cam][:n_intr]
     R_ck = so3.to_matrix(state.q_ck[cam])
-    R_wk = so3.to_matrix(state.q_wk)
-    p_k = (pw_f - state.t_wk[:, None, :]) @ R_wk              # (F, P, 3)
     p_cam = p_k @ R_ck.transpose(0, 1) + state.p_ck[cam]
-    r = (model.project(p_cam, intr) - pc_f) * valid_f[..., None]
-    s = torch.sum(r * r, dim=-1)
-    w = reproj_loss.weight(s) * valid_f                       # (F, P)
-
+    r = (model.project(p_cam, intr) - p_c) * valid[..., None]
     # per-point projection Jacobians (the only autodiff left)
+    lead = tuple(p_k.shape[:-1])
     pi_jac = vmap(jacfwd(model.project, argnums=(0, 1)), in_dims=(0, None))
-    A, Ji = pi_jac(p_cam.reshape(F * P, 3), intr)
-    A = A.reshape(F, P, 2, 3)
-    Ji = Ji.reshape(F, P, 2, n_intr)
+    A, Ji = pi_jac(p_cam.reshape(-1, 3), intr)
+    A = A.reshape(lead + (2, 3))
+    Ji = Ji.reshape(lead + (2, n_intr))
     B = A @ R_ck                                              # dpi/dp_k
-    px, py, pz = (p_k[..., i, None] for i in range(3))        # (F, P, 1)
-    Bx, By, Bz = B[..., 0], B[..., 1], B[..., 2]              # (F, P, 2)
+    px, py, pz = (p_k[..., i, None] for i in range(3))        # (..., 1)
+    Bx, By, Bz = B[..., 0], B[..., 1], B[..., 2]              # (..., 2)
     # B @ hat(p_k): column c is B (p_k x e_c)
     BH = torch.stack([By * pz - Bz * py,
                       Bz * px - Bx * pz,
-                      Bx * py - By * px], dim=-1)             # (F, P, 2, 3)
-    J = torch.cat([-B, BH, -BH, A, Ji], dim=-1)               # (F, P, 2, k)
+                      Bx * py - By * px], dim=-1)             # (..., 2, 3)
+    return r, torch.cat([-B, BH, -BH, A, Ji], dim=-1)
+
+
+def reproj_frame_gram_fast(state: CalibState, obs: CameraObs, cam: int,
+                           model_name: str, col_mask, reproj_loss):
+    """Analytic-geometry frame-major Gram assembly.
+
+    Returns (s (F, P) raw squared errors, G (F, k+1, k+1)) where G's last
+    row/column holds J^T r and the leading k x k block is the masked,
+    robust-weighted J^T J, columns [pose(6) | rot(3) | trans(3) | intr]
+    (see :func:`_reproj_jacobian`).
+    """
+    model = get_model(model_name)
+    F = state.t_wk.shape[0]
+    P = obs.points_per_frame
+    pw_f, pc_f, valid_f = _frame_major(obs, F)
+    k = 12 + model.n_params
+    R_wk = so3.to_matrix(state.q_wk)
+    p_k = (pw_f - state.t_wk[:, None, :]) @ R_wk              # (F, P, 3)
+    r, J = _reproj_jacobian(model, state, cam, p_k, pc_f, valid_f)
+    s = torch.sum(r * r, dim=-1)
+    w = reproj_loss.weight(s) * valid_f                       # (F, P)
     J_aug = torch.cat([J * col_mask[:, None, None, :], r[..., None]],
                       dim=-1)                                 # (F,P,2,k+1)
     J_aug = (J_aug * w[..., None, None]).reshape(F, 2 * P, k + 1)
     G = J_aug.transpose(1, 2) @ J_aug                         # (F,k+1,k+1)
     return s, G
+
+
+def reproj_residuals_and_jacobians(state: CalibState, obs: CameraObs,
+                                   cam: int, model_name: str):
+    """Residuals plus tangent Jacobians for one camera, in any row layout.
+
+    Returns (r (N,2), J_pose (N,2,6), J_rot (N,2,3), J_trans (N,2,3),
+    J_intr (N,2,Pc)), all valid-masked: the analytic geometry of
+    :func:`_reproj_jacobian`, row by row.
+    """
+    model = get_model(model_name)
+    fi = obs.frame_idx
+    R_wk = so3.to_matrix(state.q_wk[fi])                      # (N, 3, 3)
+    p_k = ((obs.p_w - state.t_wk[fi])[:, None, :] @ R_wk)[:, 0]
+    r, J = _reproj_jacobian(model, state, cam, p_k, obs.p_c, obs.valid)
+    J = J * obs.valid[:, None, None]
+    return r, J[..., :6], J[..., 6:9], J[..., 9:12], J[..., 12:]
 
 
 # ----------------------------------------------------------------- IMU factors

@@ -243,7 +243,7 @@ def run_staged(state: CalibState, data: ProblemData, flags: StageFlags,
                outlier_threshold: float = 2.0,
                gyro_sigma=IMU_GYRO_SIGMA, accel_sigma=IMU_ACCEL_SIGMA,
                stats_callback=None, checkpoint_path: str = None,
-               compute_cov: bool = False,
+               compute_cov: bool = False, mesh=None,
                resume: bool = False) -> StagedResult:
     """Run the full staged schedule to completion on the problem's device.
 
@@ -258,11 +258,14 @@ def run_staged(state: CalibState, data: ProblemData, flags: StageFlags,
     every stage.  With either observer, or DEBUG logging, each stage's info
     comes to the host after its solve (one device-to-host copy per stage);
     with none, every stage's info comes back in one transfer at the end.
+    With ``mesh`` every solve sums its normal equations over the mesh's
+    shards (see LMSolver); the initializers, outlier removal and the
+    covariance work on the full problem.
     """
     sigmas = None
     if data.imu is not None and flags.calibrate_imu:
         sigmas = (float(gyro_sigma), float(accel_sigma))
-    solver = LMSolver(data, options, sigmas=sigmas)
+    solver = LMSolver(data, options, sigmas=sigmas, mesh=mesh)
     dtype = state.t_wk.dtype
     dev = state.t_wk.device
     pending = []                      # (stage_name, raw_info, wall)
@@ -320,7 +323,7 @@ def run_staged(state: CalibState, data: ProblemData, flags: StageFlags,
             info = materialize_info(raw)
             data = remove_outliers(state, data, info.cam_rmse,
                                    outlier_threshold)
-            solver = LMSolver(data, options, sigmas=sigmas)
+            solver = LMSolver(data, options, sigmas=sigmas, mesh=mesh)
             outliers_removed = True
         else:
             break
