@@ -1,0 +1,7 @@
+"""The engine's ``read`` phase timer (device-synchronised), seconds per
+calibration."""
+from harness.readers import per_call
+
+
+def read(rec):
+    return per_call(rec, lambda c: c["timings"]["read"])
