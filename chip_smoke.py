@@ -36,7 +36,7 @@ Phases, in order; any failure exits non-zero:
      Phase 5's gates, plus: the report exists and parses as HTML, and the
      kernel launched.  Prints the chunk table (frames, capacity, LM
      iterations, cost, wall seconds); with ``--profile`` the run also
-     passes ``-profile_dir`` and the device's busy share of the solve is
+     passes ``-profile_dir`` and the device's busy share of the run is
      read from the Chrome trace the engine writes;
   7. checkpoint and resume on phase 5's files: ``cli.main`` with
      ``-checkpoint_file``, then again with ``-resume_file``.  Both pass
@@ -413,22 +413,25 @@ def _device_profile(prof, wall_s, top=15):
         log("  %9.3f ms %6d x  %s" % (ms, n, key[:90]))
 
 
+def _launches(rec):
+    """The CUDA kernel's launches in a recording (obs.py)."""
+    return {"threshold_and_label": rec.count(
+        "vicalib.detect.kernel_launches")}
+
+
 def run_cli(dev, argv, profile=False, chunks=None, sharded=None):
-    """One ``cli.main`` run with every kernel count set to 0 just before it
-    and read just after; under ``profile`` also the device profile.  The
+    """One ``cli.main`` run with the kernel launches counted in a recording
+    around it; under ``profile`` also the device profile.  The
     streaming chunk rows are appended to ``chunks`` when it is given, the
     sharded solve's record (placement, collectives) is put in ``sharded``
     when it is given."""
-    from vicalib_tpu_torch import cli
-    from vicalib_tpu_torch.detect import kernels
+    from vicalib_tpu_torch import cli, obs
 
     cap = _Capture()
     loggers = [logging.getLogger("vicalib_tpu_torch.engine"),
                logging.getLogger("vicalib_tpu_torch.streaming")]
     for lg in loggers:
         lg.addHandler(cap)
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
     prof = None
     if profile:
         from torch.profiler import ProfilerActivity
@@ -436,10 +439,11 @@ def run_cli(dev, argv, profile=False, chunks=None, sharded=None):
                                                   ProfilerActivity.CUDA])
         prof.__enter__()
     t0 = time.time()
-    rc = cli.main(argv, device=str(dev))
+    with obs.recording() as rec:
+        rc = cli.main(argv, device=str(dev))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = _launches(rec)
     if prof is not None:
         prof.__exit__(None, None, None)
         _device_profile(prof, wall)
@@ -770,15 +774,18 @@ def sharded_phase(dev, cfg, root, dirs, ref):
                        for n, i, c, w in res["stages"]]}
 
 
-# the CLI module run as ``python -m vicalib_tpu_torch.cli`` (runpy), which
-# prints the process's kernel launch counts when it exits
+# the CLI module run as ``python -m vicalib_tpu_torch.cli`` (runpy) inside
+# a recording, which prints the process's kernel launch counts when it exits
 _CLI_WORKER = (
-    "import atexit, json, runpy\n"
-    "from vicalib_tpu_torch.detect import kernels\n"
-    "atexit.register(lambda: print('KERNEL_LAUNCHES ' + json.dumps("
-    "kernels.LAUNCHES), flush=True))\n"
-    "runpy.run_module('vicalib_tpu_torch.cli', run_name='__main__', "
-    "alter_sys=True)\n")
+    "import json, runpy\n"
+    "from vicalib_tpu_torch import obs\n"
+    "with obs.recording() as rec:\n"
+    "    try:\n"
+    "        runpy.run_module('vicalib_tpu_torch.cli', run_name='__main__', "
+    "alter_sys=True)\n"
+    "    finally:\n"
+    "        print('KERNEL_LAUNCHES ' + json.dumps({'threshold_and_label': "
+    "rec.count('vicalib.detect.kernel_launches')}), flush=True)\n")
 
 
 def two_process_phase(cfg, root, dirs, ref):
@@ -881,22 +888,19 @@ def tracker_phase(dev, data, dirs, model_xml):
     import contextlib
     import io
 
-    from vicalib_tpu_torch import tracker
-    from vicalib_tpu_torch.detect import kernels
+    from vicalib_tpu_torch import obs, tracker
     from vicalib_tpu_torch.geometry import quat_np
 
     poses = os.path.join(os.path.dirname(dirs[0]), "tracker_poses.txt")
     argv = ["-cam", "file://%s/*.pgm" % dirs[0], "-models", "linear",
             "-model_files", model_xml, "-output_poses", poses]
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
     buf = io.StringIO()
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), obs.recording() as rec:
         rc = tracker.main(argv, device=str(dev))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = _launches(rec)
     text = buf.getvalue()
     frames = [int(k) for k in re.findall(r"^frame (\d+) ", text, re.M)]
     mats = np.array([float(x) for ln in re.findall(r"^[+-].*$", text, re.M)

@@ -18,7 +18,9 @@ fixture (tests/test_torch_slice_vi.py): the two packages' PnP RANSAC draws
 differ, so the solves start from slightly different poses.
 """
 import json
+import logging
 import os
+import re
 import socket
 import urllib.request
 
@@ -111,13 +113,15 @@ def test_engine_stream_matches_jax(tmp_path):
     np.testing.assert_allclose(tt, np.asarray(tj), rtol=0, atol=1e-4)
 
 
-def test_engine_stream_with_imu_report_and_status(tmp_path):
+def test_engine_stream_with_imu_report_and_status(tmp_path, caplog):
     """-stream_chunk 6 with the IMU, -report_file, -status_port and
     -compute_covariance: the server serves the snapshot the engine has just
     published, the report is an HTML document with the inertial table and
     the covariance sigmas, the covariance is finite, and the state is
     trimmed to the selected frames (11 of the fixture's 12; the first
-    precedes the IMU)."""
+    precedes the IMU).  The result log's live spans count the chunks
+    published."""
+    caplog.set_level(logging.INFO, logger="vicalib_tpu_torch.streaming")
     seen = []
     port = _free_port()
     res = _run(TEngine, _cfg(TConfig, tmp_path, stream_chunk=6,
@@ -140,6 +144,12 @@ def test_engine_stream_with_imu_report_and_status(tmp_path):
     # the server stopped with the run
     with pytest.raises(OSError):
         urllib.request.urlopen("http://127.0.0.1:%d/" % port, timeout=2)
+    chunks = [r.chunk for r in caplog.records if hasattr(r, "chunk")]
+    log = (tmp_path / "v.log").read_text()
+    for name in ("build", "solve", "publish"):
+        n = re.search(r"^span vicalib\.live\.%s: n=(\d+) s=" % name, log,
+                      re.M)
+        assert n and int(n.group(1)) == len(chunks) == 2, name
 
 
 def test_engine_checkpoint_then_resume(tmp_path, monkeypatch):
@@ -182,8 +192,11 @@ def test_engine_checkpoint_then_resume(tmp_path, monkeypatch):
 
 
 def test_profile_dir_writes_a_trace(tmp_path):
-    """-profile_dir: a torch.profiler Chrome trace of the solve (CPU
-    activity here; CUDA activity too on a card)."""
+    """-profile_dir: a torch.profiler Chrome trace of the whole run (CPU
+    activity here; CUDA activity too on a card), with the port's spans
+    from the frame read to the LM iterations as host ranges of the
+    operator kind, which the profiler does not mirror on the device's
+    timeline as it does an annotation."""
     prof = tmp_path / "prof"
     res = _run(TEngine, _cfg(TConfig, tmp_path, imu="", calibrate_imu=False,
                              profile_dir=str(prof)), tmp_path, device="cpu")
@@ -191,5 +204,8 @@ def test_profile_dir_writes_a_trace(tmp_path):
     traces = os.listdir(prof)
     assert len(traces) == 1 and traces[0].endswith(".json")
     trace = json.load(open(prof / traces[0]))
-    assert any(e.get("name", "").startswith("aten::")
-               for e in trace["traceEvents"])
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)
+    assert {"vicalib.engine.read", "vicalib.lm.iter"} <= names
+    assert {e.get("cat") for e in trace["traceEvents"]
+            if e.get("name", "").startswith("vicalib.")} == {"cpu_op"}

@@ -24,6 +24,7 @@ from vicalib_tpu.detect.image_proc import adaptive_threshold as j_at
 from vicalib_tpu.detect.image_proc import box_mean as j_box
 from vicalib_tpu.detect.pallas_kernels import threshold_and_label as j_tl
 from vicalib_tpu.io import sim as jsim
+from vicalib_tpu_torch import obs
 from vicalib_tpu_torch.detect import image_proc, kernels
 
 
@@ -108,12 +109,12 @@ def test_box_mean_and_adaptive_threshold_match_jax():
 
 # ------------------------------------------------------------ the wrapper
 def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
-    kernels.LAUNCHES["threshold_and_label"] = 0
     img = torch.from_numpy(_many_dots())
-    mask, lab = kernels.threshold_and_label(img, 4)
+    with obs.recording() as rec:
+        mask, lab = kernels.threshold_and_label(img, 4)
     _, ref = kernels.threshold_and_label_ref(img, 4)
     assert torch.equal(lab, ref) and torch.equal(mask, ref > 0)
-    assert kernels.LAUNCHES["threshold_and_label"] == 0
+    assert rec.count("vicalib.detect.kernel_launches") == 0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "unpadded", "noncontiguous",

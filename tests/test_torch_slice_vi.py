@@ -19,7 +19,9 @@ T_ck 2e-5, ts 2e-6).  Both results must also pass the JAX fixture test's
 own ground-truth checks (test_smoke_fixture.py).
 """
 import json
+import logging
 import os
+import re
 
 import numpy as np
 import pytest
@@ -50,12 +52,34 @@ def _run(engine_cls, config_cls, out_dir, **kw):
         os.chdir(cwd)
 
 
+class _Timings(logging.Handler):
+    """The ``timings`` extras of the engine's log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.seen = []
+
+    def emit(self, record):
+        if hasattr(record, "timings"):
+            self.seen.append(record.timings)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     dj = tmp_path_factory.mktemp("jax_vi")
     dt = tmp_path_factory.mktemp("torch_vi")
-    return (_run(JEngine, JConfig, dj), dj,
-            _run(TEngine, TConfig, dt, device="cpu"), dt)
+    res_j = _run(JEngine, JConfig, dj)
+    lg = logging.getLogger("vicalib_tpu_torch.engine")
+    cap, level = _Timings(), lg.level
+    lg.addHandler(cap)
+    lg.setLevel(logging.INFO)
+    try:
+        res_t = _run(TEngine, TConfig, dt, device="cpu")
+    finally:
+        lg.removeHandler(cap)
+        lg.setLevel(level)
+    res_t.timings_extras = cap.seen
+    return res_j, dj, res_t, dt
 
 
 def _gt_checks(res, gt):
@@ -103,6 +127,32 @@ def test_port_vi_engine_matches_jax_engine(runs):
     for key in ("bw_ba= ", "sfw_sfa= ", "G= ", "ts= ",
                 "stage inertial-full+scale: iters="):
         assert key in log
+    _check_span_rows(log, res_t.timings_extras)
+
+
+def _check_span_rows(log, timings_extras):
+    """The result log's span rows (obs.py): every span the benchmark's
+    readers parse, one LM iteration span per iteration of the stage rows,
+    the iteration's parts within it, and the engine's phase spans equal to
+    the ``timings`` extra, which keeps exactly its four phases."""
+    spans = {name: (int(n), float(sec)) for name, n, sec in re.findall(
+        r"^span (\S+): n=(\d+) s=(\S+)$", log, re.M)}
+    for name in ("lm.iter", "lm.wait", "lm.weights", "lm.assemble",
+                 "lm.step", "engine.solve", "detect.match",
+                 "solve.stage"):
+        assert "vicalib." + name in spans, name
+    stage_iters = [int(i) for i in re.findall(r"^stage \S+: iters=(\d+)",
+                                              log, re.M)]
+    assert spans["vicalib.lm.iter"][0] == sum(stage_iters) > 0
+    assert spans["vicalib.solve.stage"][0] == len(stage_iters)
+    for part in ("lm.wait", "lm.weights", "lm.assemble", "lm.step"):
+        assert 0 < spans["vicalib." + part][1] <= \
+            spans["vicalib.lm.iter"][1]
+    (timings,) = timings_extras
+    assert sorted(timings) == ["build", "detect", "read", "solve"]
+    for phase, sec in timings.items():
+        assert spans["vicalib.engine." + phase] == (
+            1, pytest.approx(sec, abs=1e-6))
 
 
 def test_cli_main_imu_writes_the_same_calibration(tmp_path):
@@ -141,7 +191,9 @@ def test_cli_main_imu_writes_the_same_calibration(tmp_path):
     log = open(log_cli).read()
     assert "shared-parameter covariance blocks:" in log
     assert "time_offset: sigma=" in log and "cam0.R_ck: sigma=" in log
-    strip = lambda s: [ln for ln in s.splitlines() if "wall=" not in ln]
+    # stage and span rows carry host seconds, which differ between runs
+    strip = lambda s: [ln for ln in s.splitlines()
+                       if "wall=" not in ln and not ln.startswith("span ")]
     assert strip(log) == strip((tmp_path / "e" / "v.log").read_text())
 
 

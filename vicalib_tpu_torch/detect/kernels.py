@@ -39,10 +39,9 @@ import threading
 import torch
 import torch.nn.functional as F
 
-BIG = torch.iinfo(torch.int32).max
+from .. import obs
 
-# launches of each CUDA kernel, counted by its wrapper where it launches
-LAUNCHES = {"threshold_and_label": 0}
+BIG = torch.iinfo(torch.int32).max
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "threshold_label.cu")
@@ -176,7 +175,7 @@ def threshold_and_label(imgs, radius, at_threshold=0.9, black_on_white=True,
     if err != 0:
         raise RuntimeError("threshold_and_label kernel failed: CUDA error "
                            "%d" % err)
-    LAUNCHES["threshold_and_label"] += 1
+    obs.count("vicalib.detect.kernel_launches")
     # the kernel leaves out > 0 in the mask buffer
     return mask.view(torch.bool), out
 

@@ -24,15 +24,6 @@ log = logging.getLogger("vicalib_tpu_torch.dist")
 
 
 @dataclasses.dataclass
-class CollectiveStats:
-    """What this process's all-reduces and broadcasts moved, and the host
-    seconds spent in them (for NCCL the enqueue, for gloo the exchange)."""
-    calls: int = 0
-    bytes: int = 0
-    seconds: float = 0.0
-
-
-@dataclasses.dataclass
 class Mesh:
     """This process's shards of a sharded solve.
 
@@ -46,8 +37,6 @@ class Mesh:
     world_size: int = 1
     group: object = None
     backend: str = None
-    stats: CollectiveStats = dataclasses.field(
-        default_factory=CollectiveStats)
 
     def describe(self) -> str:
         return "process %d/%d holds shards %s of %d on %s%s" % (

@@ -32,10 +32,11 @@ from __future__ import annotations
 import datetime
 import logging
 import socket
-import time
 
 import torch
 import torch.distributed as dist
+
+from .. import obs
 
 log = logging.getLogger("vicalib_tpu_torch.dist")
 
@@ -160,14 +161,13 @@ def all_reduce_sum(mesh, tensors):
     if mesh.world_size == 1:
         return list(tensors)
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    t0 = time.perf_counter()
-    buf = _comm_tensor(mesh, flat)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    if buf is not flat:
-        flat = buf.to(flat.device)
-    mesh.stats.calls += 1
-    mesh.stats.bytes += flat.numel() * flat.element_size()
-    mesh.stats.seconds += time.perf_counter() - t0
+    with obs.span("vicalib.dist.collective"):
+        buf = _comm_tensor(mesh, flat)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+        if buf is not flat:
+            flat = buf.to(flat.device)
+    obs.count("vicalib.dist.collective_bytes",
+              flat.numel() * flat.element_size())
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].reshape(t.shape))
@@ -179,11 +179,9 @@ def agree(mesh, flag: bool) -> bool:
     """Rank 0's value of a host decision, on every rank."""
     if mesh.world_size == 1:
         return flag
-    t0 = time.perf_counter()
-    dev = mesh.devices[0] if mesh.backend == "nccl" else "cpu"
-    t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
-    dist.broadcast(t, src=0, group=mesh.group)
-    mesh.stats.calls += 1
-    mesh.stats.bytes += 4
-    mesh.stats.seconds += time.perf_counter() - t0
+    with obs.span("vicalib.dist.collective"):
+        dev = mesh.devices[0] if mesh.backend == "nccl" else "cpu"
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+        dist.broadcast(t, src=0, group=mesh.group)
+    obs.count("vicalib.dist.collective_bytes", 4)
     return bool(t.item())

@@ -14,7 +14,8 @@ solve by chunked, warm-started re-solves (streaming.py) that publish stats,
 rewrite ``-report_file`` and push a scene to ``-status_port`` after every
 chunk.  ``-n_shards`` and a multi-process run (cli.py) split the solve over
 the shards of a mesh (dist/); every process runs the whole pipeline and
-only the primary writes files.
+only the primary writes files.  Each calibration runs in a recording of
+spans and counters (obs.py) whose totals end the result log.
 """
 from __future__ import annotations
 
@@ -22,11 +23,11 @@ import contextlib
 import dataclasses
 import logging
 import os
-import time
 
 import numpy as np
 import torch
 
+from . import obs
 from .config import VicalibConfig
 from .device import resolve_device
 from .geometry import quat_np
@@ -99,19 +100,23 @@ def _detect_all(images, target, cfg, device, max_conics=512):
             inflight[starts[nxt]] = dispatch(starts[nxt])
         # grid association: the threaded native batch matcher when the
         # native host library is there, the python matcher otherwise
-        batch = native_io.match_grid_batch(det["center"], det["radius"],
-                                           det["valid"], target.grid)
-        for k in range(det["center"].shape[0]):
+        n = det["center"].shape[0]
+        with obs.span("vicalib.detect.match"):
+            batch = native_io.match_grid_batch(det["center"], det["radius"],
+                                               det["valid"], target.grid)
             if batch is not None:
-                if int(batch[0][k]) < 0:
-                    continue
-                grid_coords = batch[1][k]
+                found = [batch[1][k] if int(batch[0][k]) >= 0 else None
+                         for k in range(n)]
             else:
-                m = match_target(det["center"][k], det["radius"][k],
-                                 det["valid"][k], target, backend="numpy")
-                if not m.ok:
-                    continue
-                grid_coords = m.grid_coords
+                found = []
+                for k in range(n):
+                    m = match_target(det["center"][k], det["radius"][k],
+                                     det["valid"][k], target,
+                                     backend="numpy")
+                    found.append(m.grid_coords if m.ok else None)
+        for k, grid_coords in enumerate(found):
+            if grid_coords is None:
+                continue
             sel = grid_coords[:, 0] >= 0
             gidx = (grid_coords[sel, 1] * target.cols + grid_coords[sel, 0])
             pixels[i + k, gidx] = det["center"][k][sel]
@@ -248,34 +253,37 @@ class VicalibEngine:
         F = len(sel_times)
 
         def publish(chunk):
-            stats.status = CalibrationStatus.OPTIMIZING
-            # same units as batch mode (cost / n_residuals, run_staged) so
-            # stats consumers can compare modes
-            stats.total_mse = chunk.cost / max(chunk.n_residuals, 1)
-            stats.reprojection_error = [float(r) for r in chunk.cam_rmse]
-            stats.num_iterations = chunk.iterations
-            stats.ts = chunk.time_offset
-            self.update_stats(stats.copy())
-            log.info("stream chunk: %d/%d frames rmse %s iters %d %.2fs",
-                     chunk.n_frames, F, chunk.cam_rmse, chunk.iterations,
-                     chunk.wall_s)
-            if cfg.report_file and write_outputs:
-                # rewrite the HTML report after every chunk so a browser
-                # pointed at it shows the run converging (the batch-side
-                # replacement for the reference's live Pangolin panels,
-                # vicalib-task.cc:154-225)
-                write_html_report(cfg.report_file, model_names, chunk.state,
-                                  cal._last_data, cal.last_result, stats,
-                                  widths, heights, target=self.target)
-            if self._status_server is not None:
-                # live 3-D view (the Pangolin scene panel analog,
-                # vicalib-engine.cc:388-432): host copies of the filled
-                # frames' poses, rendered to SVG text for the server thread
-                st = chunk.state
-                self._status_server.publish_scene(viz.scene_svg(
-                    None, self.target,
-                    st.q_wk[:chunk.n_frames].cpu().numpy(),
-                    st.t_wk[:chunk.n_frames].cpu().numpy()))
+            with obs.span("vicalib.live.publish"):
+                stats.status = CalibrationStatus.OPTIMIZING
+                # same units as batch mode (cost / n_residuals, run_staged)
+                # so stats consumers can compare modes
+                stats.total_mse = chunk.cost / max(chunk.n_residuals, 1)
+                stats.reprojection_error = [float(r) for r in chunk.cam_rmse]
+                stats.num_iterations = chunk.iterations
+                stats.ts = chunk.time_offset
+                self.update_stats(stats.copy())
+                log.info("stream chunk: %d/%d frames rmse %s iters %d "
+                         "%.2fs", chunk.n_frames, F, chunk.cam_rmse,
+                         chunk.iterations, chunk.wall_s)
+                if cfg.report_file and write_outputs:
+                    # rewrite the HTML report after every chunk so a browser
+                    # pointed at it shows the run converging (the batch-side
+                    # replacement for the reference's live Pangolin panels,
+                    # vicalib-task.cc:154-225)
+                    write_html_report(cfg.report_file, model_names,
+                                      chunk.state, cal._last_data,
+                                      cal.last_result, stats, widths,
+                                      heights, target=self.target)
+                if self._status_server is not None:
+                    # live 3-D view (the Pangolin scene panel analog,
+                    # vicalib-engine.cc:388-432): host copies of the filled
+                    # frames' poses, rendered to SVG text for the server
+                    # thread
+                    st = chunk.state
+                    self._status_server.publish_scene(viz.scene_svg(
+                        None, self.target,
+                        st.q_wk[:chunk.n_frames].cpu().numpy(),
+                        st.t_wk[:chunk.n_frames].cpu().numpy()))
 
         cal = StreamingCalibrator(
             model_names, self.target.circles_3d(), widths=widths,
@@ -316,14 +324,14 @@ class VicalibEngine:
         result.state = s._replace(q_wk=s.q_wk[:F], t_wk=s.t_wk[:F],
                                   v_w=s.v_w[:F])
         n_obs = F * data.obs[0].points_per_frame
-        obs = [dataclasses.replace(
+        kept = [dataclasses.replace(
             o, frame_idx=o.frame_idx[:n_obs], p_w=o.p_w[:n_obs],
             p_c=o.p_c[:n_obs], valid=o.valid[:n_obs]) for o in data.obs]
         imu = None if data.imu is None else dataclasses.replace(
             data.imu, **{k: getattr(data.imu, k)[:F - 1] for k in (
                 "win_times", "win_gyro", "win_accel", "start", "end",
                 "has_meas", "frame_i")})
-        return result, dataclasses.replace(data, obs=obs, imu=imu,
+        return result, dataclasses.replace(data, obs=kept, imu=imu,
                                            n_frames=F)
 
     def run(self) -> EngineResult:
@@ -355,6 +363,30 @@ class VicalibEngine:
                 self.update_stats = inner
 
     def _run(self) -> EngineResult:
+        """One calibration inside its own recording of spans and counters
+        (obs.py); with -profile_dir, inside a torch.profiler Chrome trace
+        from the read to the outputs."""
+        cfg = self.cfg
+        prof_ctx = contextlib.nullcontext()
+        if cfg.profile_dir:
+            # the counterpart of the JAX package's jax.profiler trace, with
+            # device activity on a CUDA device; the port's spans show in it
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            prof_ctx = profile(activities=acts)
+        with obs.recording() as rec, prof_ctx as prof:
+            res = self._calibrate(rec)
+        if prof is not None:
+            os.makedirs(cfg.profile_dir, exist_ok=True)
+            trace = os.path.join(cfg.profile_dir,
+                                 "vicalib_trace_%d.json" % os.getpid())
+            prof.export_chrome_trace(trace)
+            log.info("wrote profiler trace %s", trace)
+        return res
+
+    def _calibrate(self, rec) -> EngineResult:
         from .dist.multihost import is_primary, world_size
         from .solver import StageFlags, run_staged
         from .solver.build import build_problem
@@ -365,104 +397,106 @@ class VicalibEngine:
         timings = {}
         if not cfg.cam:
             raise ValueError("No camera URI given")
-        t0 = time.time()
-        camera = sources.parse_camera_uri(cfg.cam)
-        camera.frame_rate = cfg.frame_rate_hint
-        imu = sources.parse_imu_uri(
-            cfg.imu, use_system_time=cfg.use_system_time) if cfg.imu else None
-        if imu is None:
-            cfg.calibrate_imu = False
+        with obs.span("vicalib.engine.read") as sp:
+            camera = sources.parse_camera_uri(cfg.cam)
+            camera.frame_rate = cfg.frame_rate_hint
+            imu = sources.parse_imu_uri(
+                cfg.imu, use_system_time=cfg.use_system_time) \
+                if cfg.imu else None
+            if imu is None:
+                cfg.calibrate_imu = False
 
-        # ---- camera<->IMU clock handling (vicalib-task.cc:633-653).
-        # With -use_system_time both streams carry host stamps and are
-        # already synchronized (offset init 0).  With device time the clocks
-        # are unrelated: initialize the offset by aligning the first IMU
-        # sample with the first frame — the same assumption the reference
-        # makes (both streams start when recording starts) — and let the
-        # solver refine it.  Convention: imu_time + offset = image time.
-        time_offset_guess = 0.0
-        if (imu is not None and cfg.calibrate_imu and cfg.find_time_offset
-                and not cfg.use_system_time and len(imu.times)
-                and camera.n_frames):
-            time_offset_guess = (float(camera.channel_stamps(0)[0])
-                                 - float(imu.times[0]))
-            if abs(time_offset_guess) > 1e-6:
-                log.info("unsynchronized clocks: initial camera-IMU time "
-                         "offset %.6f s from first IMU sample",
-                         time_offset_guess)
+            # ---- camera<->IMU clock handling (vicalib-task.cc:633-653).
+            # With -use_system_time both streams carry host stamps and are
+            # already synchronized (offset init 0).  With device time the
+            # clocks are unrelated: initialize the offset by aligning the
+            # first IMU sample with the first frame — the same assumption
+            # the reference makes (both streams start when recording starts)
+            # — and let the solver refine it.  Convention: imu_time + offset
+            # = image time.
+            time_offset_guess = 0.0
+            if (imu is not None and cfg.calibrate_imu and cfg.find_time_offset
+                    and not cfg.use_system_time and len(imu.times)
+                    and camera.n_frames):
+                time_offset_guess = (float(camera.channel_stamps(0)[0])
+                                     - float(imu.times[0]))
+                if abs(time_offset_guess) > 1e-6:
+                    log.info("unsynchronized clocks: initial camera-IMU time "
+                             "offset %.6f s from first IMU sample",
+                             time_offset_guess)
 
-        C = camera.num_channels
-        model_names, preload = self._model_names(C)
-        stats = CalibrationStats(C, status=CalibrationStatus.CAPTURING)
-        # several processes: every one runs the engine, only the primary
-        # writes files, so processes sharing a directory do not race
-        write_outputs = is_primary()
+            C = camera.num_channels
+            model_names, preload = self._model_names(C)
+            stats = CalibrationStats(C, status=CalibrationStatus.CAPTURING)
+            # several processes: every one runs the engine, only the primary
+            # writes files, so processes sharing a directory do not race
+            write_outputs = is_primary()
 
-        # ---- capture loop: static-motion gating + frame selection
-        # (vicalib-engine.cc:497-555)
-        accel_filter = BoxcarFilter(10, cfg.static_accel_threshold)
-        gyro_filter = BoxcarFilter(10, cfg.static_gyro_threshold)
-        # first IMU time expressed on the image clock (offset applied)
-        first_imu_time = imu.times[0] + time_offset_guess if imu is not None \
-            and len(imu.times) else -np.inf
-        imu_cursor = 0
+            # ---- capture loop: static-motion gating + frame selection
+            # (vicalib-engine.cc:497-555)
+            accel_filter = BoxcarFilter(10, cfg.static_accel_threshold)
+            gyro_filter = BoxcarFilter(10, cfg.static_gyro_threshold)
+            # first IMU time expressed on the image clock (offset applied)
+            first_imu_time = imu.times[0] + time_offset_guess \
+                if imu is not None and len(imu.times) else -np.inf
+            imu_cursor = 0
 
-        # superframe association matches channels by nearest stamp to
-        # channel 0, dropping frames any channel misses
-        # (vicalib-task.cc:612-678)
-        assoc_times, assoc_sel = sources.associate_channels(
-            camera, system=cfg.use_system_time)
-        if len(assoc_times) < camera.n_frames:
-            log.info("async channels: %d/%d superframes associated",
-                     len(assoc_times), camera.n_frames)
-        sel_times, sel_indices = [], []
-        skipped = 0
-        for k in range(len(assoc_times)):
-            t = float(assoc_times[k])
-            if imu is not None and cfg.use_only_when_static:
-                while imu_cursor < len(imu.times) and \
-                        imu.times[imu_cursor] + time_offset_guess <= t:
-                    accel_filter.add(imu.accel[imu_cursor])
-                    gyro_filter.add(imu.gyro[imu_cursor])
-                    imu_cursor += 1
-                if not (accel_filter.is_stable()
-                        and gyro_filter.is_stable()):
-                    continue
-            if skipped < cfg.frame_skip:
-                skipped += 1
-                continue
+            # superframe association matches channels by nearest stamp to
+            # channel 0, dropping frames any channel misses
+            # (vicalib-task.cc:612-678)
+            assoc_times, assoc_sel = sources.associate_channels(
+                camera, system=cfg.use_system_time)
+            if len(assoc_times) < camera.n_frames:
+                log.info("async channels: %d/%d superframes associated",
+                         len(assoc_times), camera.n_frames)
+            sel_times, sel_indices = [], []
             skipped = 0
-            # frames before the first IMU sample have no factor to join
-            if imu is not None and t <= first_imu_time:
-                continue
-            sel_times.append(t)
-            sel_indices.append(k)
-            if (cfg.num_vicalib_frames > 0
-                    and len(sel_times) >= cfg.num_vicalib_frames):
-                break
-        if len(sel_times) < 2:
-            raise RuntimeError("not enough usable frames")
-        log.info("selected %d/%d frames", len(sel_times), camera.n_frames)
-        sel_images = [camera.read_batch(
-            c, [int(assoc_sel[c][j]) for j in sel_indices])
-            for c in range(C)]
-        sel_indices = [int(assoc_sel[0][j]) for j in sel_indices]
-        timings["read"] = time.time() - t0
+            for k in range(len(assoc_times)):
+                t = float(assoc_times[k])
+                if imu is not None and cfg.use_only_when_static:
+                    while imu_cursor < len(imu.times) and \
+                            imu.times[imu_cursor] + time_offset_guess <= t:
+                        accel_filter.add(imu.accel[imu_cursor])
+                        gyro_filter.add(imu.gyro[imu_cursor])
+                        imu_cursor += 1
+                    if not (accel_filter.is_stable()
+                            and gyro_filter.is_stable()):
+                        continue
+                if skipped < cfg.frame_skip:
+                    skipped += 1
+                    continue
+                skipped = 0
+                # frames before the first IMU sample have no factor to join
+                if imu is not None and t <= first_imu_time:
+                    continue
+                sel_times.append(t)
+                sel_indices.append(k)
+                if (cfg.num_vicalib_frames > 0
+                        and len(sel_times) >= cfg.num_vicalib_frames):
+                    break
+            if len(sel_times) < 2:
+                raise RuntimeError("not enough usable frames")
+            log.info("selected %d/%d frames", len(sel_times), camera.n_frames)
+            sel_images = [camera.read_batch(
+                c, [int(assoc_sel[c][j]) for j in sel_indices])
+                for c in range(C)]
+            sel_indices = [int(assoc_sel[0][j]) for j in sel_indices]
+        timings["read"] = sp.s
 
         # ---- detection (vicalib-task.cc:247-368)
-        t0 = time.time()
-        F = len(sel_times)
-        pixels, visible, conic_rows_all = [], [], []
-        for c in range(C):
-            pix, vis, rows = _detect_all(sel_images[c], self.target, cfg,
-                                         dev)
-            pixels.append(pix)
-            visible.append(vis)
-            conic_rows_all.extend(rows)
-            stats.num_frames_processed[c] = int(np.sum(vis.any(axis=1)))
-        pixels = np.stack(pixels)
-        visible = np.stack(visible)
-        timings["detect"] = time.time() - t0
+        with obs.span("vicalib.engine.detect") as sp:
+            F = len(sel_times)
+            pixels, visible, conic_rows_all = [], [], []
+            for c in range(C):
+                pix, vis, rows = _detect_all(sel_images[c], self.target, cfg,
+                                             dev)
+                pixels.append(pix)
+                visible.append(vis)
+                conic_rows_all.extend(rows)
+                stats.num_frames_processed[c] = int(np.sum(vis.any(axis=1)))
+            pixels = np.stack(pixels)
+            visible = np.stack(visible)
+        timings["detect"] = sp.s
         if cfg.output_conics and write_outputs:
             out_io.write_conics_csv("conics.csv", conic_rows_all)
         if cfg.clip_good and write_outputs:
@@ -509,40 +543,41 @@ class VicalibEngine:
                       refine_time_offset=(not cfg.use_system_time
                                           and cfg.find_time_offset
                                           and cfg.calibrate_imu))
-        t0 = time.time()
-        if cfg.stream_chunk > 0:
-            # streaming does its own incremental problem builds; keep the
-            # time-offset refinement: PnP poses from a visual-only build,
-            # then raw-stream gyro/vision alignment, so streaming handles
-            # clock skew beyond the first-sample guess as batch mode does
-            for flag_set, name in ((cfg.n_shards > 1, "-n_shards"),
-                                   (bool(cfg.checkpoint_file),
-                                    "-checkpoint_file"),
-                                   (bool(cfg.resume_file), "-resume_file")):
-                if flag_set:
-                    log.warning("%s is not supported with -stream_chunk — "
-                                "ignored", name)
-            data = state = None
-            if kw.get("refine_time_offset"):
-                from .solver.build import refine_offset_guess
-                _, state_v = build_problem(
+        with obs.span("vicalib.engine.build") as sp:
+            if cfg.stream_chunk > 0:
+                # streaming does its own incremental problem builds; keep the
+                # time-offset refinement: PnP poses from a visual-only build,
+                # then raw-stream gyro/vision alignment, so streaming handles
+                # clock skew beyond the first-sample guess as batch mode does
+                for flag_set, name in ((cfg.n_shards > 1, "-n_shards"),
+                                       (bool(cfg.checkpoint_file),
+                                        "-checkpoint_file"),
+                                       (bool(cfg.resume_file),
+                                        "-resume_file")):
+                    if flag_set:
+                        log.warning("%s is not supported with -stream_chunk "
+                                    "— ignored", name)
+                data = state = None
+                if kw.get("refine_time_offset"):
+                    from .solver.build import refine_offset_guess
+                    _, state_v = build_problem(
+                        model_names, np.asarray(sel_times), pixels, visible,
+                        self.target.circles_3d(), widths=widths,
+                        heights=heights, dtype=dtype, device=dev, intr0=intr0,
+                        T_ck0=T_ck0, use_ransac=True)
+                    time_offset_guess = float(refine_offset_guess(
+                        np.asarray(sel_times), state_v.q_wk.cpu().numpy(),
+                        imu.times, imu.gyro, time_offset_guess))
+                    log.info("refined camera-IMU time offset guess: %.6f s",
+                             time_offset_guess)
+            else:
+                data, state = build_problem(
                     model_names, np.asarray(sel_times), pixels, visible,
-                    self.target.circles_3d(), widths=widths,
-                    heights=heights, dtype=dtype, device=dev, intr0=intr0,
-                    T_ck0=T_ck0, use_ransac=True)
-                time_offset_guess = float(refine_offset_guess(
-                    np.asarray(sel_times), state_v.q_wk.cpu().numpy(),
-                    imu.times, imu.gyro, time_offset_guess))
-                log.info("refined camera-IMU time offset guess: %.6f s",
-                         time_offset_guess)
-        else:
-            data, state = build_problem(
-                model_names, np.asarray(sel_times), pixels, visible,
-                self.target.circles_3d(), widths=widths, heights=heights,
-                dtype=dtype, device=dev, intr0=intr0, T_ck0=T_ck0,
-                use_ransac=True, **kw)
-        _sync(dev)
-        timings["build"] = time.time() - t0
+                    self.target.circles_3d(), widths=widths, heights=heights,
+                    dtype=dtype, device=dev, intr0=intr0, T_ck0=T_ck0,
+                    use_ransac=True, **kw)
+            _sync(dev)
+        timings["build"] = sp.s
 
         flags = StageFlags(
             calibrate_imu=cfg.calibrate_imu,
@@ -569,18 +604,7 @@ class VicalibEngine:
             resume = True
             log.info("resuming from %s (stage %s)", cfg.resume_file,
                      meta.get("stage"))
-        prof_ctx = contextlib.nullcontext()
-        if cfg.profile_dir:
-            # the counterpart of the JAX package's jax.profiler trace: a
-            # torch.profiler Chrome trace of the solve, with device activity
-            # on a CUDA device
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU]
-            if dev.type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            prof_ctx = profile(activities=acts)
-        t0 = time.time()
-        with prof_ctx as prof:
+        with obs.span("vicalib.engine.solve") as sp:
             if cfg.stream_chunk > 0:
                 result, data = self._run_streaming(
                     cfg, model_names, sel_times, pixels, visible, imu,
@@ -597,21 +621,17 @@ class VicalibEngine:
                     compute_cov=cfg.compute_covariance, mesh=mesh,
                     resume=resume)
             _sync(dev)
-        timings["solve"] = time.time() - t0
+        timings["solve"] = sp.s
         if mesh is not None:
-            st = mesh.stats
+            calls = rec.n("vicalib.dist.collective")
+            nbytes = rec.count("vicalib.dist.collective_bytes")
+            secs = rec.seconds("vicalib.dist.collective")
             log.info("sharded solve: %s; %d collectives, %d bytes, %.3f s",
-                     mesh.describe(), st.calls, st.bytes, st.seconds,
+                     mesh.describe(), calls, nbytes, secs,
                      extra={"collectives": dict(
-                         placement=mesh.describe(), calls=st.calls,
-                         bytes=st.bytes, seconds=st.seconds,
+                         placement=mesh.describe(), calls=calls,
+                         bytes=nbytes, seconds=secs,
                          iterations=result.total_iterations)})
-        if prof is not None:
-            os.makedirs(cfg.profile_dir, exist_ok=True)
-            trace = os.path.join(cfg.profile_dir,
-                                 "solve_trace_%d.json" % os.getpid())
-            prof.export_chrome_trace(trace)
-            log.info("wrote profiler trace %s", trace)
         state = result.state
         q_ck = state.q_ck.cpu().numpy()
         p_ck = state.p_ck.cpu().numpy()
@@ -663,6 +683,8 @@ class VicalibEngine:
                 for row in result.stages_run:
                     f.write("stage %s: iters=%d cost=%.6e wall=%.2fs\n" %
                             tuple(row))
+                for row in rec.rows():
+                    f.write(row + "\n")
                 if result.covariance is not None:
                     # named per-block marginals, like the reference's
                     # covariance log (vicalibrator.h:802-857: block name +

@@ -10,7 +10,9 @@ info vector.  Convergence criteria mirror the reference: function tolerance
 1e-6, gradient-norm early stop at 1e-9, max iterations 200.  The IMU
 covariance whitening (UpdateImuWeights, vicalibrator.h:690-692) is
 recomputed on the device every ``weight_refresh`` iterations; the cadence
-is a branch on the host-side iteration count.
+is a branch on the host-side iteration count.  Each iteration is a
+``vicalib.lm.iter`` span around the weight refresh, assembly, step and
+stop-test wait spans (obs.py).
 
 The solve runs with full-precision float32 matmuls (TF32 off for matmuls
 and cuDNN) — reduced-precision passes break the normal equations.
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from .. import obs
 from .assemble import ProblemData, assemble, robust_costs
 from .problem import CalibState, retract
 from .schur import schur_solve
@@ -130,27 +133,29 @@ def _lm_step(data, state, lam, nu, weight_sqrt, fmask, smask, inertial_scale,
     is a ProblemData, or a dist.sharded.ShardedProblem with
     ``weight_sqrt`` in its sharded layout (its shards' sums)."""
     whole = isinstance(data, ProblemData)
-    D, U, Hfs, Hss, gf, gs, cost, _ = (
-        assemble(state, data, weight_sqrt, fmask, smask, inertial_scale,
-                 rotation_only) if whole else
-        data.assemble(state, weight_sqrt, fmask, smask, inertial_scale,
-                      rotation_only))
-    lams = candidate_lams(lam, options)
-    dxf_b, dxs_b, pred_b = vmap(
-        lambda l: schur_solve(D, U, Hfs, Hss, gf, gs, damping=l))(lams)
-    trial_b = CalibState(*vmap(
-        lambda df, ds: retract(state, data.layout, df * fmask, ds * smask))(
-        dxf_b, dxs_b))
-    if whole:
-        cost_b = vmap(
-            lambda s: robust_costs(CalibState(*s), data, weight_sqrt,
-                                   inertial_scale, rotation_only)[0])(
-            tuple(trial_b))
-    else:
-        cost_b = data.trial_costs(trial_b, weight_sqrt, inertial_scale,
-                                  rotation_only)
-    return select_candidate(state, trial_b, cost, cost_b, pred_b, lams, lam,
-                            nu, gf, gs, options)
+    with obs.span("vicalib.lm.assemble"):
+        D, U, Hfs, Hss, gf, gs, cost, _ = (
+            assemble(state, data, weight_sqrt, fmask, smask, inertial_scale,
+                     rotation_only) if whole else
+            data.assemble(state, weight_sqrt, fmask, smask, inertial_scale,
+                          rotation_only))
+    with obs.span("vicalib.lm.step"):
+        lams = candidate_lams(lam, options)
+        dxf_b, dxs_b, pred_b = vmap(
+            lambda l: schur_solve(D, U, Hfs, Hss, gf, gs, damping=l))(lams)
+        trial_b = CalibState(*vmap(
+            lambda df, ds: retract(state, data.layout, df * fmask,
+                                   ds * smask))(dxf_b, dxs_b))
+        if whole:
+            cost_b = vmap(
+                lambda s: robust_costs(CalibState(*s), data, weight_sqrt,
+                                       inertial_scale, rotation_only)[0])(
+                tuple(trial_b))
+        else:
+            cost_b = data.trial_costs(trial_b, weight_sqrt, inertial_scale,
+                                      rotation_only)
+        return select_candidate(state, trial_b, cost, cost_b, pred_b, lams,
+                                lam, nu, gf, gs, options)
 
 
 def _get_weights(data, state, seed_weight, use_cov_weights, sigmas,
@@ -163,7 +168,8 @@ def _get_weights(data, state, seed_weight, use_cov_weights, sigmas,
     if data.imu is None or sigmas is None:
         return seed_weight
     if use_cov_weights and refresh:
-        return imu_weights(state, data.imu, sigmas[0], sigmas[1])
+        with obs.span("vicalib.lm.weights"):
+            return imu_weights(state, data.imu, sigmas[0], sigmas[1])
     return seed_weight if carry_weight is None else carry_weight
 
 
@@ -186,31 +192,37 @@ def fused_solve(data: ProblemData, state: CalibState, fmask, smask,
         done = False
         W = seed_weight
         while not done and it < options.max_iters:
-            W = _get_weights(data, state, seed_weight, use_cov_weights,
-                             sigmas, carry_weight=W,
-                             refresh=it % options.weight_refresh == 0)
-            (state, lam_new, nu, cost, trial_cost, accept, gnorm,
-             pred_max) = _lm_step(data, state, lam, nu,
-                                  W if whole else data.shard_weight(W),
-                                  fmask, smask, inertial_scale,
-                                  rotation_only, options)
-            ftol_gate = options.function_tolerance * cost
-            converged = accept & ((cost - trial_cost) < ftol_gate)
-            # even the best candidate's model-predicted reduction is below
-            # tolerance (and some candidate was admissible): stop
-            converged |= (~accept) & (pred_max > 0) & (pred_max < ftol_gate)
-            converged |= (gnorm > 0) & (gnorm < options.gradient_tolerance)
-            converged |= lam >= options.lam_max
-            cost_cur = torch.where(accept, trial_cost, cost)
-            improved = (best - cost_cur) >= ftol_gate
-            best = torch.minimum(best, cost_cur)
-            stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
-            converged |= stall >= options.stall_iters
-            lam = lam_new
-            it += 1
-            done = bool(converged)           # the one host read per iteration
-            if not whole:
-                done = data.agree(done)      # every rank takes rank 0's
+            with obs.span("vicalib.lm.iter"):
+                W = _get_weights(data, state, seed_weight, use_cov_weights,
+                                 sigmas, carry_weight=W,
+                                 refresh=it % options.weight_refresh == 0)
+                (state, lam_new, nu, cost, trial_cost, accept, gnorm,
+                 pred_max) = _lm_step(data, state, lam, nu,
+                                      W if whole else data.shard_weight(W),
+                                      fmask, smask, inertial_scale,
+                                      rotation_only, options)
+                ftol_gate = options.function_tolerance * cost
+                converged = accept & ((cost - trial_cost) < ftol_gate)
+                # even the best candidate's model-predicted reduction is
+                # below tolerance (and some candidate was admissible): stop
+                converged |= ((~accept) & (pred_max > 0)
+                              & (pred_max < ftol_gate))
+                converged |= ((gnorm > 0)
+                              & (gnorm < options.gradient_tolerance))
+                converged |= lam >= options.lam_max
+                cost_cur = torch.where(accept, trial_cost, cost)
+                improved = (best - cost_cur) >= ftol_gate
+                best = torch.minimum(best, cost_cur)
+                stall = torch.where(improved, torch.zeros_like(stall),
+                                    stall + 1)
+                converged |= stall >= options.stall_iters
+                lam = lam_new
+                it += 1
+                with obs.span("vicalib.lm.wait"):
+                    # the one host read per iteration
+                    done = bool(converged)
+                    if not whole:
+                        done = data.agree(done)  # every rank takes rank 0's
         W = _get_weights(data, state, seed_weight, use_cov_weights, sigmas)
         final_cost, cam_sq, cam_cnt = (
             robust_costs(state, data, W, inertial_scale, rotation_only)

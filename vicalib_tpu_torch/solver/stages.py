@@ -21,11 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..geometry import so3
 from ..imu import preintegrate
 from .assemble import ProblemData
@@ -300,12 +300,12 @@ def run_staged(state: CalibState, data: ProblemData, flags: StageFlags,
             "inertial-rotation" if flags.rotation_only else
             "inertial-full%s" % ("+scale" if flags.scale_active else ""))
         log.info("=== stage: %s ===", stage_name)
-        t_stage = time.time()
-        state, raw = solver.solve(
-            state, fmask, smask, use_cov_weights=full_inertial,
-            inertial_scale=1.0 if inertial else 0.0,
-            rotation_only=flags.rotation_only, lazy=True)
-        wall = time.time() - t_stage
+        with obs.span("vicalib.solve.stage") as sp:
+            state, raw = solver.solve(
+                state, fmask, smask, use_cov_weights=full_inertial,
+                inertial_scale=1.0 if inertial else 0.0,
+                rotation_only=flags.rotation_only, lazy=True)
+        wall = sp.s
         pending.append((stage_name, raw, wall))
         if not lazy:
             _observe_stage(stage_name, raw, wall, state, flags, solver,

@@ -24,11 +24,11 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 
 import numpy as np
 import torch
 
+from . import obs
 from .device import resolve_device
 from .geometry import se3
 from .solver import StageFlags, run_staged
@@ -156,26 +156,26 @@ class StreamingCalibrator:
 
     def solve(self) -> ChunkResult:
         """Re-solve with everything received so far (warm-started)."""
-        t0 = time.time()
         F = self.n_frames
         if F < 2:
             raise ValueError("need at least 2 frames")
-        cap = _next_capacity(F)
-        times, pixels, visible = self._padded_inputs(cap)
+        with obs.span("vicalib.live.build") as build:
+            cap = _next_capacity(F)
+            times, pixels, visible = self._padded_inputs(cap)
 
-        kw = {}
-        use_imu = self.calibrate_imu and len(self.imu_times) > 1
-        if use_imu:
-            kw = dict(imu_times=self.imu_times, gyro=self.gyro,
-                      accel=self.accel, window_slack=self.window_slack,
-                      time_offset_guess=self.time_offset_guess)
-        data, state = build_problem(
-            self.model_names, times, pixels, visible, self.points_3d,
-            widths=self.widths, heights=self.heights, dtype=self.dtype,
-            device=self.device, **kw)
+            kw = {}
+            use_imu = self.calibrate_imu and len(self.imu_times) > 1
+            if use_imu:
+                kw = dict(imu_times=self.imu_times, gyro=self.gyro,
+                          accel=self.accel, window_slack=self.window_slack,
+                          time_offset_guess=self.time_offset_guess)
+            data, state = build_problem(
+                self.model_names, times, pixels, visible, self.points_3d,
+                widths=self.widths, heights=self.heights, dtype=self.dtype,
+                device=self.device, **kw)
 
-        if self._state is not None:
-            state = self._carry_state(state, data.n_frames)
+            if self._state is not None:
+                state = self._carry_state(state, data.n_frames)
         self._filled = F
 
         if not self._schedule_done:
@@ -187,34 +187,37 @@ class StreamingCalibrator:
             # warm re-solve at the final stage configuration
             flags = self._final_flags(use_imu)
             resume = True
-        result = run_staged(state, data, flags, self.options,
-                            gyro_sigma=self.gyro_sigma,
-                            accel_sigma=self.accel_sigma, resume=resume)
-        if self.remove_outliers:
-            # Per-chunk outlier pass on the converged state (the reference's
-            # RemoveOutliers + one re-solve, vicalibrator.h:859-916, at the
-            # streaming cadence): observations beyond threshold * per-camera
-            # RMSE are invalidated PERSISTENTLY (the host visible mask feeds
-            # every later chunk's rebuild) and the chunk re-solves once.
-            data2 = _remove_outliers(result.state, data, result.cam_rmse,
-                                     self.outlier_threshold)
-            n_removed = 0
-            for c in range(self._C):
-                keep = (data2.obs[c].valid.cpu().numpy()
-                        .reshape(cap, self._P)[:F] > 0)
-                removed = self.visible[c, :F] & ~keep
-                n_removed += int(removed.sum())
-                self.visible[c, :F] &= keep
-            if n_removed:
-                log.info("stream outliers: removed %d observations; "
-                         "re-solving chunk", n_removed)
-                flags = self._final_flags(use_imu)
-                result = run_staged(result.state, data2, flags,
-                                    self.options,
-                                    gyro_sigma=self.gyro_sigma,
-                                    accel_sigma=self.accel_sigma,
-                                    resume=True)
-                data = data2
+        with obs.span("vicalib.live.solve") as solve:
+            result = run_staged(state, data, flags, self.options,
+                                gyro_sigma=self.gyro_sigma,
+                                accel_sigma=self.accel_sigma, resume=resume)
+            if self.remove_outliers:
+                # Per-chunk outlier pass on the converged state (the
+                # reference's RemoveOutliers + one re-solve,
+                # vicalibrator.h:859-916, at the streaming cadence):
+                # observations beyond threshold * per-camera RMSE are
+                # invalidated PERSISTENTLY (the host visible mask feeds every
+                # later chunk's rebuild) and the chunk re-solves once.
+                data2 = _remove_outliers(result.state, data,
+                                         result.cam_rmse,
+                                         self.outlier_threshold)
+                n_removed = 0
+                for c in range(self._C):
+                    keep = (data2.obs[c].valid.cpu().numpy()
+                            .reshape(cap, self._P)[:F] > 0)
+                    removed = self.visible[c, :F] & ~keep
+                    n_removed += int(removed.sum())
+                    self.visible[c, :F] &= keep
+                if n_removed:
+                    log.info("stream outliers: removed %d observations; "
+                             "re-solving chunk", n_removed)
+                    flags = self._final_flags(use_imu)
+                    result = run_staged(result.state, data2, flags,
+                                        self.options,
+                                        gyro_sigma=self.gyro_sigma,
+                                        accel_sigma=self.accel_sigma,
+                                        resume=True)
+                    data = data2
         self._state = result.state
         self._schedule_done = True
         self.last_result = result
@@ -226,7 +229,7 @@ class StreamingCalibrator:
             n_residuals=int(result.info.n_residuals),
             iterations=result.total_iterations,
             time_offset=float(result.state.time_offset),
-            wall_s=time.time() - t0, state=result.state)
+            wall_s=build.s + solve.s, state=result.state)
         self.results.append(chunk)
         log.info("chunk: %d frames (cap %d) cost %.6e rmse %s iters %d "
                  "%.2fs", F, cap, chunk.cost, chunk.cam_rmse,
