@@ -29,7 +29,17 @@ Phases, in order; any failure exits non-zero:
      intrinsics within 0.5 px, |ts - 0.004| < 2e-3 s, and the kernel
      launched during the phase.  Prints the stage table (iterations, cost,
      wall time), the biases and the phase seconds; with ``--profile`` also
-     the device's busy share and top kernels of the VI run;
+     the device's busy share and top kernels of the VI run.  Then the LM
+     loop's CUDA graphs against its eager loop on the same problem: the
+     engine in this process as it runs (the step and the IMU weight
+     refresh replayed as CUDA graphs, under
+     ``torch.cuda.set_sync_debug_mode("error")`` while a graph body runs
+     or is captured), its staged solve recorded and solved again from the
+     same problem and start with ``solver.lm._graph_path`` answering False
+     (every body eager).  Prints the captures, the replays, the LM seconds
+     and the largest differences; fails unless every stage takes the same
+     iterations, the intrinsics agree within 1e-6 px and T_ck, the biases
+     and the time offset within 1e-9;
   6. the live (streaming) path on phase 5's files: ``cli.main`` with
      ``-stream_chunk 32 -report_file ... -compute_covariance`` — six chunks
      at capacities 32, 64, 128, 128, 256, 256, each a warm-started re-solve.
@@ -37,7 +47,10 @@ Phases, in order; any failure exits non-zero:
      kernel launched.  Prints the chunk table (frames, capacity, LM
      iterations, cost, wall seconds); with ``--profile`` the run also
      passes ``-profile_dir`` and the device's busy share of the run is
-     read from the Chrome trace the engine writes;
+     read from the Chrome trace the engine writes.  Then the graphed
+     against the eager LM loop as in phase 5, on every chunk's staged
+     solve of a stream: the same iterations in every stage and phase 5's
+     tolerances on every chunk's answer;
   7. checkpoint and resume on phase 5's files: ``cli.main`` with
      ``-checkpoint_file``, then again with ``-resume_file``.  Both pass
      phase 5's gates; the resumed run must start at the saved stage, and the
@@ -99,6 +112,9 @@ VI_ACCEL_BIAS = np.array([0.05, 0.02, -0.04])
 VI_TIME_OFFSET = 0.004
 # a sharded against a single-device solve (tests/test_dist.py:97-105)
 SHARD_TOL = {"rmse_rtol": 2e-3, "q_ck": 1e-5, "biases": 1e-4, "ts": 1e-5}
+# the LM loop replayed as CUDA graphs against its eager loop: intrinsics
+# (px), T_ck (quaternion and translation entries), biases, time offset (s)
+GRAPH_TOL = {"intr_px": 1e-6, "T_ck": 1e-9, "biases": 1e-9, "ts": 1e-9}
 # the two-process phase: seconds before both processes are killed
 TWO_PROCESS_TIMEOUT_S = 400
 REPLACES = {"threshold_and_label": "vicalib_tpu/detect/pallas_kernels.py:194"}
@@ -463,6 +479,125 @@ def run_cli(dev, argv, profile=False, chunks=None, sharded=None):
     return launches, cap.timings, wall
 
 
+def engine_run(dev, argv):
+    """One calibration through the engine in this process, with cli.main's
+    configuration of ``argv``, inside a recording.  Returns (EngineResult,
+    recording, wall seconds)."""
+    from vicalib_tpu_torch import cli, obs
+    from vicalib_tpu_torch.engine import VicalibEngine
+
+    cfg, _ = cli.parse_args(argv)
+    cfg.device = str(dev)
+    t0 = time.time()
+    with obs.recording() as rec:
+        res = VicalibEngine(cfg).run()
+    torch.cuda.synchronize()
+    return res, rec, time.time() - t0
+
+
+def _sync_checked(run):
+    """``_Graphs.run`` under set_sync_debug_mode("error"): a body that
+    synchronises with the host, eager or captured, raises."""
+    def checked(self, key, body):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(self, key, body)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return checked
+
+
+def _lm_row(rec):
+    n = rec.n("vicalib.lm.iter")
+    return {"iters": n, "lm_s": rec.seconds("vicalib.lm.iter"),
+            "wait_s": rec.seconds("vicalib.lm.wait"),
+            "captures": rec.count("vicalib.lm.graph_capture"),
+            "replays": rec.count("vicalib.lm.graph_replay"),
+            "replay_s": rec.seconds("vicalib.lm.replay")}
+
+
+def graph_check(dev, root, dirs, label, extra=()):
+    """The LM loop's CUDA graphs against its eager loop on the same
+    problems: the engine runs on phase 5's files with ``extra`` flags as it
+    runs (every graph body under _sync_checked), recording each staged
+    solve it makes (one per batch calibration, one per chunk); each is then
+    solved again from the same problem and start with
+    ``solver.lm._graph_path`` answering False (every body eager).  Equal
+    iterations per stage, and GRAPH_TOL on every solve's answer."""
+    from vicalib_tpu_torch import obs, solver, streaming
+    from vicalib_tpu_torch.solver import lm
+
+    solves = []
+    staged = solver.run_staged
+
+    def recorded(*a, **k):
+        res = staged(*a, **k)
+        solves.append((a, k, res))
+        return res
+
+    out = os.path.join(root, "%s_graphs" % label)
+    os.makedirs(out)
+    saved = lm._Graphs.run
+    solver.run_staged = streaming.run_staged = recorded
+    lm._Graphs.run = _sync_checked(lm._Graphs.run)
+    try:
+        _, rec_g, wall = engine_run(dev, vi_argv(root, dirs, out)
+                                    + list(extra))
+    finally:
+        solver.run_staged = streaming.run_staged = staged
+        lm._Graphs.run = saved
+    lm._graph_path, saved = (lambda data, state: False), lm._graph_path
+    try:
+        with obs.recording() as rec_e:
+            eager = [staged(*a, **k) for a, k, _ in solves]
+        torch.cuda.synchronize()
+    finally:
+        lm._graph_path = saved
+    runs = {"graphed": _lm_row(rec_g), "eager": _lm_row(rec_e)}
+    for mode, r in runs.items():
+        log("%s %s: %d LM iterations in %.3f s (%.1f ms each, wait %.1f "
+            "ms); %d captures, %d replayed iterations (%.0f%%), %.3f s in "
+            "replay calls" % (label, mode, r["iters"], r["lm_s"],
+                              1e3 * r["lm_s"] / max(r["iters"], 1),
+                              1e3 * r["wait_s"] / max(r["iters"], 1),
+                              r["captures"], r["replays"],
+                              100.0 * r["replays"] / max(r["iters"], 1),
+                              r["replay_s"]))
+    diff = dict.fromkeys(GRAPH_TOL, 0.0)
+    stages = []
+    for (_, _, g), e in zip(solves, eager):
+        stages.append([(n, int(i)) for n, i, *_ in g.stages_run])
+        if stages[-1] != [(n, int(i)) for n, i, *_ in e.stages_run]:
+            fail("%s: the graphed solve's iterations %s differ from the "
+                 "eager solve's %s" % (label, g.stages_run, e.stages_run))
+        a, b = g.state, e.state
+        q_sign = torch.sign(torch.sum(a.q_ck * b.q_ck, dim=1, keepdim=True))
+        for k, v in (("intr_px", a.intr - b.intr),
+                     ("T_ck", torch.cat([(a.q_ck - q_sign * b.q_ck),
+                                         a.p_ck - b.p_ck], dim=1)),
+                     ("biases", a.biases - b.biases),
+                     ("ts", a.time_offset - b.time_offset)):
+            diff[k] = max(diff[k], float(v.abs().max()))
+    log("%s: %d staged solves, iterations %s; graphed against eager: "
+        "largest differences %s (tolerances %s)"
+        % (label, len(solves), stages,
+           {k: "%.3g" % v for k, v in diff.items()}, GRAPH_TOL))
+    g, e = runs["graphed"], runs["eager"]
+    if not solves or g["iters"] != e["iters"]:
+        fail("%s: %d solves, %d graphed and %d eager iterations"
+             % (label, len(solves), g["iters"], e["iters"]))
+    if g["captures"] <= 0 or g["replays"] <= 0 or e["replays"] != 0:
+        fail("%s: the graphed run captured %d and replayed %d, the eager "
+             "run replayed %d" % (label, g["captures"], g["replays"],
+                                  e["replays"]))
+    for k, v in diff.items():
+        if not v <= GRAPH_TOL[k]:
+            fail("%s: graphed and eager solves differ in %s by %.3g (above "
+                 "%g)" % (label, k, v, GRAPH_TOL[k]))
+    return {"diff": diff, "stages": stages, "engine_wall_s": wall, **runs}
+
+
 def check_intrinsics(cams, cfg):
     for c in range(len(cfg.cameras)):
         dp = np.abs(cams[c]["params"] - cfg.cameras[c].params[:4])
@@ -605,7 +740,9 @@ def vi_phase(dev, cfg, root, dirs, profile=False):
     os.makedirs(out)
     launches, timings, wall = run_cli(dev, vi_argv(root, dirs, out), profile)
     _, res, errs = check_vi(cfg, out, "VI")
+    graphs = graph_check(dev, root, dirs, "VI")
     return {"launches": launches, "phase_s": timings, "cli_wall_s": wall,
+            "graphs": graphs,
             "rmse_px": res["rmse"], "T_ck_err": errs, "ts": res["ts"],
             "bw_ba": res["bw_ba"].tolist(),
             "T_ck": [T.tolist() for T in res["T_ck"]],
@@ -670,7 +807,10 @@ def stream_phase(dev, cfg, root, dirs, profile=False):
             "(%.1f%%), %d device events" % (traces[0], busy_ms, span_ms,
                                              100.0 * busy_ms / span_ms,
                                              n_ev))
+    graphs = graph_check(dev, root, dirs, "stream",
+                         ["-stream_chunk", "32"])
     return {"launches": launches, "phase_s": timings, "cli_wall_s": wall,
+            "graphs": graphs,
             "chunks": chunks, "rmse_px": res["rmse"], "T_ck_err": errs,
             "ts": res["ts"], "bw_ba": res["bw_ba"].tolist(),
             "profile_trace": busy,

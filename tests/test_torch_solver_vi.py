@@ -355,20 +355,30 @@ def test_shared_covariance_matches_jax(vi, staged):
     assert names == [n for n, _, _ in vi["data_j"].layout.block_names()]
 
 
-def test_weight_refresh_cadence():
-    """The covariance weights are recomputed on refresh iterations only;
-    otherwise the carried weights come back unchanged."""
+def test_weight_refresh_cadence(monkeypatch):
+    """The covariance weights are recomputed on refresh iterations and
+    once after the loop, and only in a stage that uses them with IMU
+    factors and sigmas; otherwise the loop's seed weights stay."""
     assert tlm.LMOptions().weight_refresh == jlm.LMOptions().weight_refresh
-    data = type("D", (), {"imu": None})()
-    seed = torch.ones(1)
-    assert tlm._get_weights(data, None, seed, True, (1.0, 1.0)) is seed
-    data.imu = object()
-    carry = torch.zeros(1)
-    assert tlm._get_weights(data, None, seed, True, (1.0, 1.0),
-                            carry_weight=carry, refresh=False) is carry
-    assert tlm._get_weights(data, None, seed, False, (1.0, 1.0),
-                            carry_weight=carry) is carry
-    assert tlm._get_weights(data, None, seed, False, (1.0, 1.0)) is seed
+    ran = []
+    monkeypatch.setattr(tlm, "_step_body",
+                        lambda data, loop, rot, opts: ran.append("step"))
+    monkeypatch.setattr(tlm, "_weights_body",
+                        lambda data, loop, sigmas: ran.append("weights"))
+    loop = type("L", (), {"converged": torch.tensor(False)})()
+    opts = tlm.LMOptions(max_iters=9)
+    for use_cov, imu, sigmas, want in (
+            (True, object(), (1.0, 1.0),
+             (["weights"] + ["step"] * 4) * 2 + ["weights", "step",
+                                                 "weights"]),
+            (False, object(), (1.0, 1.0), ["step"] * 9),
+            (True, None, (1.0, 1.0), ["step"] * 9),
+            (True, object(), None, ["step"] * 9)):
+        ran.clear()
+        data = tlm.ProblemData(obs=[], imu=imu, layout=None, n_frames=0)
+        assert tlm._iterate(data, loop, False, use_cov, opts, sigmas) == \
+            (9, False)
+        assert ran == want
 
 
 def test_row_major_assemble_with_imu_matches_jax(vi):

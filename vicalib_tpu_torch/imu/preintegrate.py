@@ -14,9 +14,10 @@ operator Matrix<10,1>, types.h:188-194).  The quaternion is deliberately NOT
 renormalized inside the chain, matching the reference's memcpy-without-
 normalization (types.h:344-345).
 
-Every function here is pure and free of in-place writes, host reads and
-branches on tensor values, so it runs under ``torch.func.vmap`` (over
-factors, and again over LM damping candidates) and ``jacrev``.  Degenerate
+Every function here is pure and free of in-place writes, host reads, host
+constants and branches on tensor values, so it runs under
+``torch.func.vmap`` (over factors, and again over LM damping candidates)
+and ``jacrev``, and inside a CUDA graph capture.  Degenerate
 (zero-length) intervals keep every denominator "safe" before the
 ``torch.where`` that discards them: the untaken branch still runs backward,
 and a NaN there would survive as NaN * 0.
@@ -31,9 +32,9 @@ GRAVITY_MAG = 9.8007  # types.h:40-42
 
 
 def _ident_quat(like):
-    """Identity quaternion(s) shaped like ``like`` (..., 4)."""
-    return torch.zeros_like(like) + torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=like.dtype, device=like.device)
+    """Identity quaternion(s) shaped like ``like`` (..., 4), made on its
+    device (no host constant, so a CUDA graph can capture it)."""
+    return torch.nn.functional.pad(torch.ones_like(like[..., 3:]), (3, 0))
 
 
 def gravity_vector(g_dir, mag=GRAVITY_MAG):
@@ -290,9 +291,6 @@ def integrate_trajectory(y0, seq_times, seq_gyro, seq_accel, bg, ba, sf,
     return t0_ + torch.cumsum(step, dim=0)
 
 
-_ROT_ROWS = (0., 0., 0., 1., 1., 1., 0., 0., 0.)
-
-
 def imu_factor_residual(T_wx1, v1, T_wx2, v2, win_times, win_gyro, win_accel,
                         start, end, g_dir, bg, ba, sf, time_offset,
                         has_meas, weight_sqrt=None, rotation_only=False):
@@ -322,7 +320,10 @@ def imu_factor_residual(T_wx1, v1, T_wx2, v2, win_times, win_gyro, win_accel,
     if weight_sqrt is not None:
         r = weight_sqrt @ r
     if rotation_only:
-        r = r * torch.tensor(_ROT_ROWS, dtype=r.dtype, device=r.device)
+        # keep the rotation rows 3:6; the mask is made on r's device
+        r = r * torch.cat([torch.zeros_like(r[..., :3]),
+                           torch.ones_like(r[..., 3:6]),
+                           torch.zeros_like(r[..., 6:])], dim=-1)
     return torch.where(has_meas, r, torch.zeros_like(r))
 
 

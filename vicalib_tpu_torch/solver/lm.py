@@ -14,6 +14,16 @@ is a branch on the host-side iteration count.  Each iteration is a
 ``vicalib.lm.iter`` span around the weight refresh, assembly, step and
 stop-test wait spans (obs.py).
 
+The loop's state lives in preallocated tensors (:class:`_LoopState`); the
+iteration's two bodies, the step (:func:`_step_body`) and the weight
+refresh (:func:`_weights_body`), read them and write their results back
+with ``copy_``.  For a CUDA state on a whole ProblemData, ``LMSolver``
+keeps those tensors for all of its stages and replays each body as a CUDA
+graph (:class:`_Graphs`): a body runs eagerly the first time, is captured
+the second and replayed from then on, so a replayed iteration costs the
+device's time and one host read.  Everywhere else (the CPU, the sharded
+problem, whose step runs collectives) the same bodies run eagerly.
+
 The solve runs with full-precision float32 matmuls (TF32 off for matmuls
 and cuDNN) — reduced-precision passes break the normal equations.
 """
@@ -22,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import threading
 
 import numpy as np
 import torch
@@ -158,80 +169,247 @@ def _lm_step(data, state, lam, nu, weight_sqrt, fmask, smask, inertial_scale,
                                 lam, nu, gf, gs, options)
 
 
-def _get_weights(data, state, seed_weight, use_cov_weights, sigmas,
-                 carry_weight=None, refresh=True):
-    """Whitening weights for this iteration.
+class _LoopState:
+    """The LM loop's state in preallocated tensors: the iterate, lambda,
+    nu, the best cost, the stall count, the IMU weights ``W``, the stage's
+    masks and inertial scale, and the stop flag.  :meth:`start` fills them
+    for a stage; the bodies overwrite them in place, so a graph captured
+    over a body replays on the same addresses in every stage."""
 
-    Covariance propagation runs when ``use_cov_weights`` and ``refresh``
-    (host bools) both hold; otherwise the carried weights (else the seed)
-    are reused."""
-    if data.imu is None or sigmas is None:
-        return seed_weight
-    if use_cov_weights and refresh:
-        with obs.span("vicalib.lm.weights"):
-            return imu_weights(state, data.imu, sigmas[0], sigmas[1])
-    return seed_weight if carry_weight is None else carry_weight
+    def __init__(self, state: CalibState, seed_weight, fmask, smask,
+                 inertial_scale):
+        like = state.t_wk
+        self.state = CalibState(*[torch.empty_like(x) for x in state])
+        self.W = torch.empty_like(seed_weight)
+        self.fmask = torch.empty_like(fmask)
+        self.smask = torch.empty_like(smask)
+        self.inertial_scale = torch.empty_like(inertial_scale)
+        self.lam = like.new_empty(())
+        self.nu = like.new_empty(())
+        self.best = like.new_empty(())
+        self.stall = torch.empty((), dtype=torch.int64, device=like.device)
+        self.converged = torch.empty((), dtype=torch.bool,
+                                     device=like.device)
+
+    def fits(self, state: CalibState, seed_weight, fmask, smask) -> bool:
+        """Whether a stage's inputs have this state's shapes and dtypes."""
+        pairs = list(zip(self.state, state)) + [
+            (self.W, seed_weight), (self.fmask, fmask), (self.smask, smask)]
+        return all(a.shape == b.shape and a.dtype == b.dtype
+                   for a, b in pairs)
+
+    def start(self, state: CalibState, seed_weight, fmask, smask,
+              inertial_scale, options: LMOptions):
+        """A stage's starting values: its state, seed weights, masks and
+        inertial scale; lambda at lam0, nu 2, no best cost, no stall."""
+        for buf, x in zip(self.state, state):
+            buf.copy_(x)
+        self.W.copy_(seed_weight)
+        self.fmask.copy_(fmask)
+        self.smask.copy_(smask)
+        self.inertial_scale.copy_(inertial_scale)
+        self.lam.fill_(options.lam0)
+        self.nu.fill_(2.0)
+        self.best.fill_(float("inf"))
+        self.stall.zero_()
+        self.converged.fill_(False)
+
+
+def _step_body(data, loop: _LoopState, rotation_only, options: LMOptions):
+    """One LM step on ``loop``'s tensors: the damped step, the stop tests
+    and the stall rule, written back in place.  No host read and no host
+    data: it is what a CUDA graph captures."""
+    whole = isinstance(data, ProblemData)
+    lam, best, stall = loop.lam, loop.best, loop.stall
+    (state, lam_new, nu, cost, trial_cost, accept, gnorm,
+     pred_max) = _lm_step(data, loop.state, lam, loop.nu,
+                          loop.W if whole else data.shard_weight(loop.W),
+                          loop.fmask, loop.smask, loop.inertial_scale,
+                          rotation_only, options)
+    ftol_gate = options.function_tolerance * cost
+    converged = accept & ((cost - trial_cost) < ftol_gate)
+    # even the best candidate's model-predicted reduction is below
+    # tolerance (and some candidate was admissible): stop
+    converged |= (~accept) & (pred_max > 0) & (pred_max < ftol_gate)
+    converged |= (gnorm > 0) & (gnorm < options.gradient_tolerance)
+    converged |= lam >= options.lam_max
+    cost_cur = torch.where(accept, trial_cost, cost)
+    improved = (best - cost_cur) >= ftol_gate
+    best = torch.minimum(best, cost_cur)
+    stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
+    converged |= stall >= options.stall_iters
+    for buf, x in zip(loop.state, state):
+        buf.copy_(x)
+    loop.lam.copy_(lam_new)
+    loop.nu.copy_(nu)
+    loop.best.copy_(best)
+    loop.stall.copy_(stall)
+    loop.converged.copy_(converged)
+
+
+def _weights_body(data, loop: _LoopState, sigmas):
+    """The IMU covariance whitening at ``loop``'s state, into ``loop.W``
+    (computed on the full problem, also when sharded)."""
+    with obs.span("vicalib.lm.weights"):
+        loop.W.copy_(imu_weights(loop.state, data.imu, sigmas[0],
+                                 sigmas[1]))
+
+
+class _ThreadState(threading.local):
+    """What the graph path keeps per thread, as the CUDA libraries keep
+    their handles: each device's capture stream (the libraries' workspaces
+    are made per stream, so one stream makes them once), and the (device,
+    key) of the bodies that have run.  A body's first run on a device makes
+    the handles and workspaces that a capture may not make, so it runs
+    eagerly (an iteration's real work); from then on every solver captures
+    the body at its first run."""
+
+    def __init__(self):
+        self.streams = {}
+        self.warm = set()
+
+
+_THREAD = _ThreadState()
+
+
+class _Graphs:
+    """CUDA graphs of one LMSolver's iteration bodies, keyed by what a body
+    branches on on the host (``("step", rotation_only)``, ``"weights"``).
+    A key is captured at its first run in the solver (its first run in the
+    thread is eager, see :class:`_ThreadState`) and replayed at every later
+    one.  Every graph of the solver draws on one private memory pool and is
+    captured on the thread's side stream, on which the whole loop runs
+    (:meth:`side_stream`); the graphs and the pool go with the solver."""
+
+    def __init__(self, device):
+        self.device = device
+        streams = _THREAD.streams
+        if device not in streams:
+            streams[device] = torch.cuda.Stream(device)
+        self.stream = streams[device]
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = {}
+
+    @contextlib.contextmanager
+    def side_stream(self):
+        """The block on the capture stream, ordered after the current
+        stream's work and before the current stream's later work."""
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            yield
+        current.wait_stream(self.stream)
+
+    def run(self, key, body) -> bool:
+        """Run ``body``; True where it ran as a replay (a capture's
+        included)."""
+        graph = self.graphs.get(key)
+        if graph is None:
+            warm = _THREAD.warm
+            if (self.device, key) not in warm:
+                body()
+                warm.add((self.device, key))
+                return False
+            graph = self.graphs[key] = self._capture(body)
+            obs.count("vicalib.lm.graph_capture")
+        with obs.span("vicalib.lm.replay"):
+            graph.replay()
+        return True
+
+    def _capture(self, body):
+        """A graph of ``body``'s device work on the current (side) stream;
+        the capture runs nothing, the graph's replays do."""
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads of the process (a status server, a
+        # frame reader) may still use the device during the capture
+        graph.capture_begin(pool=self.pool,
+                            capture_error_mode="thread_local")
+        try:
+            body()
+        finally:
+            graph.capture_end()
+        return graph
+
+
+def _iterate(data, loop: _LoopState, rotation_only, use_cov_weights,
+             options: LMOptions, sigmas, graphs: _Graphs = None):
+    """The LM iterations of a stage on ``loop``'s tensors, then the closing
+    weight refresh; with ``graphs`` the bodies run through it.  Returns
+    (iterations, converged)."""
+    whole = isinstance(data, ProblemData)
+    refresh = (use_cov_weights and data.imu is not None
+               and sigmas is not None)
+
+    def step():
+        _step_body(data, loop, rotation_only, options)
+
+    def weights():
+        _weights_body(data, loop, sigmas)
+
+    def run(key, body):
+        if graphs is None:
+            body()
+            return False
+        return graphs.run(key, body)
+
+    it = 0
+    done = False
+    while not done and it < options.max_iters:
+        with obs.span("vicalib.lm.iter"):
+            if refresh and it % options.weight_refresh == 0:
+                run("weights", weights)
+            if run(("step", rotation_only), step):
+                obs.count("vicalib.lm.graph_replay")
+            it += 1
+            with obs.span("vicalib.lm.wait"):
+                # the one host read per iteration
+                done = bool(loop.converged)
+                if not whole:
+                    done = data.agree(done)  # every rank takes rank 0's
+    if refresh:
+        run("weights", weights)
+    return it, done
+
+
+def _info_vec(data, loop: _LoopState, rotation_only, it, done):
+    """The packed [final_cost, cam_sq (C), cam_cnt (C), iterations,
+    converged] vector at ``loop``'s state and weights."""
+    whole = isinstance(data, ProblemData)
+    dtype = loop.state.t_wk.dtype
+    final_cost, cam_sq, cam_cnt = (
+        robust_costs(loop.state, data, loop.W, loop.inertial_scale,
+                     rotation_only)
+        if whole else data.robust_costs(loop.state,
+                                        data.shard_weight(loop.W),
+                                        loop.inertial_scale, rotation_only))
+    return torch.cat([
+        final_cost[None].to(dtype), cam_sq.to(dtype), cam_cnt.to(dtype),
+        torch.tensor([it, float(done)], dtype=dtype,
+                     device=loop.state.t_wk.device)])
 
 
 def fused_solve(data: ProblemData, state: CalibState, fmask, smask,
                 inertial_scale, rotation_only, use_cov_weights, seed_weight,
                 options: LMOptions, sigmas):
-    """Full LM solve on the device.  Returns (state, info_vec): the packed
-    [final_cost, cam_sq (C), cam_cnt (C), iterations, converged] vector.
-    ``data`` is a ProblemData or a dist.sharded.ShardedProblem; the weights
-    are computed on the full problem either way."""
-    whole = isinstance(data, ProblemData)
+    """Full LM solve on the device, every body run eagerly.  Returns
+    (state, info_vec): the packed [final_cost, cam_sq (C), cam_cnt (C),
+    iterations, converged] vector.  ``data`` is a ProblemData or a
+    dist.sharded.ShardedProblem; the weights are computed on the full
+    problem either way."""
     with full_precision_matmul():
-        dtype = state.t_wk.dtype
-        dev = state.t_wk.device
-        lam = torch.tensor(options.lam0, dtype=dtype, device=dev)
-        nu = torch.tensor(2.0, dtype=dtype, device=dev)
-        best = torch.tensor(float("inf"), dtype=dtype, device=dev)
-        stall = torch.zeros((), dtype=torch.int64, device=dev)
-        it = 0
-        done = False
-        W = seed_weight
-        while not done and it < options.max_iters:
-            with obs.span("vicalib.lm.iter"):
-                W = _get_weights(data, state, seed_weight, use_cov_weights,
-                                 sigmas, carry_weight=W,
-                                 refresh=it % options.weight_refresh == 0)
-                (state, lam_new, nu, cost, trial_cost, accept, gnorm,
-                 pred_max) = _lm_step(data, state, lam, nu,
-                                      W if whole else data.shard_weight(W),
-                                      fmask, smask, inertial_scale,
-                                      rotation_only, options)
-                ftol_gate = options.function_tolerance * cost
-                converged = accept & ((cost - trial_cost) < ftol_gate)
-                # even the best candidate's model-predicted reduction is
-                # below tolerance (and some candidate was admissible): stop
-                converged |= ((~accept) & (pred_max > 0)
-                              & (pred_max < ftol_gate))
-                converged |= ((gnorm > 0)
-                              & (gnorm < options.gradient_tolerance))
-                converged |= lam >= options.lam_max
-                cost_cur = torch.where(accept, trial_cost, cost)
-                improved = (best - cost_cur) >= ftol_gate
-                best = torch.minimum(best, cost_cur)
-                stall = torch.where(improved, torch.zeros_like(stall),
-                                    stall + 1)
-                converged |= stall >= options.stall_iters
-                lam = lam_new
-                it += 1
-                with obs.span("vicalib.lm.wait"):
-                    # the one host read per iteration
-                    done = bool(converged)
-                    if not whole:
-                        done = data.agree(done)  # every rank takes rank 0's
-        W = _get_weights(data, state, seed_weight, use_cov_weights, sigmas)
-        final_cost, cam_sq, cam_cnt = (
-            robust_costs(state, data, W, inertial_scale, rotation_only)
-            if whole else data.robust_costs(state, data.shard_weight(W),
-                                            inertial_scale, rotation_only))
-        info_vec = torch.cat([
-            final_cost[None].to(dtype), cam_sq.to(dtype), cam_cnt.to(dtype),
-            torch.tensor([it, float(done)], dtype=dtype, device=dev)])
-        return state, info_vec
+        loop = _LoopState(state, seed_weight, fmask, smask, inertial_scale)
+        loop.start(state, seed_weight, fmask, smask, inertial_scale,
+                   options)
+        it, done = _iterate(data, loop, rotation_only, use_cov_weights,
+                            options, sigmas)
+        return loop.state, _info_vec(data, loop, rotation_only, it, done)
+
+
+def _graph_path(data, state: CalibState) -> bool:
+    """Whether a solve replays its bodies as CUDA graphs: a CUDA state on
+    a whole ProblemData (the sharded problem's step runs collectives)."""
+    return state.t_wk.device.type == "cuda" and isinstance(data,
+                                                           ProblemData)
 
 
 def materialize_info(raw) -> LMInfo:
@@ -260,7 +438,9 @@ class LMSolver:
     """Binds a ProblemData (tensors already on their device) to the LM
     loop.  With ``mesh`` the observations and IMU factors are split over
     the mesh's shards (dist.sharded.shard_problem_arrays) and every
-    iteration sums the shards' systems."""
+    iteration sums the shards' systems.  On a CUDA device without a mesh
+    the solver keeps one loop state and its CUDA graphs for all its
+    stages (:func:`_graph_path`)."""
 
     def __init__(self, data: ProblemData, options: LMOptions = LMOptions(),
                  sigmas=None, mesh=None):
@@ -270,6 +450,8 @@ class LMSolver:
         self.data = data
         self.options = options
         self.sigmas = sigmas
+        self._loop = None        # the graph path's _LoopState and _Graphs
+        self._graphs = None
 
     def solve(self, state: CalibState, fmask, smask, use_cov_weights=False,
               inertial_scale=0.0, rotation_only=False, seed_weight=None,
@@ -283,11 +465,33 @@ class LMSolver:
             K = (self.data.imu.start.shape[0] if self.data.imu is not None
                  else 1)
             seed_weight = seed_weights(K, dtype, dev)
-        state, raw = fused_solve(
-            self.data, state, fmask, smask,
-            torch.tensor(inertial_scale, dtype=dtype, device=dev),
-            bool(rotation_only), bool(use_cov_weights), seed_weight,
-            self.options, self.sigmas)
+        args = (state, fmask, smask,
+                torch.tensor(inertial_scale, dtype=dtype, device=dev),
+                bool(rotation_only), bool(use_cov_weights), seed_weight)
+        if _graph_path(self.data, state):
+            state, raw = self._graphed_solve(*args)
+        else:
+            state, raw = fused_solve(self.data, *args, self.options,
+                                     self.sigmas)
         if lazy:
             return state, raw
         return state, materialize_info(raw)
+
+    def _graphed_solve(self, state, fmask, smask, inertial_scale,
+                       rotation_only, use_cov_weights, seed_weight):
+        """:func:`fused_solve` on the solver's own loop state, with the
+        bodies replayed as CUDA graphs; the state comes back as copies."""
+        loop = self._loop
+        if loop is None or not loop.fits(state, seed_weight, fmask, smask):
+            loop = self._loop = _LoopState(state, seed_weight, fmask, smask,
+                                           inertial_scale)
+            self._graphs = _Graphs(state.t_wk.device)
+        with full_precision_matmul():
+            with self._graphs.side_stream():
+                loop.start(state, seed_weight, fmask, smask, inertial_scale,
+                           self.options)
+                it, done = _iterate(self.data, loop, rotation_only,
+                                    use_cov_weights, self.options,
+                                    self.sigmas, self._graphs)
+            out = CalibState(*[x.clone() for x in loop.state])
+            return out, _info_vec(self.data, loop, rotation_only, it, done)

@@ -97,7 +97,8 @@ def tridiag_solve(D, U, B):
     R = B.shape[2]
     dtype, dev = D.dtype, D.device
     if F == 1:
-        return torch.linalg.solve(D, B)
+        # solve_ex: no error check, so no host read of its status
+        return torch.linalg.solve_ex(D, B)[0]
 
     zero1 = torch.zeros((1, n, n), dtype=dtype, device=dev)
     # row-local couplings: L[i] couples x_{i-1}, Rr[i] couples x_{i+1}
@@ -201,7 +202,11 @@ def schur_solve(D, U, Hfs, Hss, gf, gs, damping=0.0):
     rhs_red = -gs + BtX[:, S]
     S_sym = 0.5 * (S_red + S_red.transpose(0, 1))
     chol = _cholesky_or_nan(S_sym)
-    dx_s = torch.cholesky_solve(rhs_red[:, None], chol)[:, 0]
+    # two triangular solves (cuBLAS) rather than cholesky_solve, whose
+    # batched CUDA path fails inside a CUDA graph capture
+    y = torch.linalg.solve_triangular(chol, rhs_red[:, None], upper=False)
+    dx_s = torch.linalg.solve_triangular(chol.transpose(0, 1), y,
+                                         upper=True)[:, 0]
     dx_f = -X[:, :, S] - torch.einsum("fis,s->fi", X[:, :, :S], dx_s)
     dx_f = dx_f * sf
     dx_s = dx_s * ss
