@@ -15,7 +15,10 @@ Tolerance of the streamed camera-only calibration between the engines: the
 same chunk and stats count and the same per-chunk iterations; intrinsics
 within 5e-3 px and T_ck within 1e-4 — the batch engines' bound on this
 fixture (tests/test_torch_slice_vi.py): the two packages' PnP RANSAC draws
-differ, so the solves start from slightly different poses.
+differ, so the solves start from slightly different poses.  The port
+starts the intrinsics from the target's homographies where the JAX package
+keeps upstream's fixed start, so both engines are handed that fixed start
+as a ``-model_files`` preload.
 """
 import json
 import logging
@@ -29,6 +32,7 @@ import pytest
 
 from vicalib_tpu.config import VicalibConfig as JConfig
 from vicalib_tpu.engine import VicalibEngine as JEngine
+from vicalib_tpu_torch.cameras.models import default_params_np
 from vicalib_tpu_torch.config import VicalibConfig as TConfig
 from vicalib_tpu_torch.engine import VicalibEngine as TEngine
 from vicalib_tpu_torch.geometry import quat_np
@@ -81,6 +85,11 @@ def test_engine_stream_matches_jax(tmp_path):
     """Camera-only -stream_chunk 6 -report_file through both engines."""
     seen = {"jax": [], "torch": []}
     runs = {}
+    start = str(tmp_path / "start.xml")
+    t_out.write_cameras_xml(
+        start, ["linear"], [default_params_np("linear", 400, 300)],
+        [(np.array([0.0, 0.0, 0.0, 1.0]), np.zeros(3))], [400], [300],
+        calibrate_imu=False)
     for name, engine_cls, config_cls, kw in (
             ("jax", JEngine, JConfig, {}),
             ("torch", TEngine, TConfig, {"device": "cpu"})):
@@ -88,7 +97,8 @@ def test_engine_stream_matches_jax(tmp_path):
         out.mkdir()
         runs[name] = _run(engine_cls, _cfg(
             config_cls, out, imu="", calibrate_imu=False, max_iters=200,
-            stream_chunk=6, report_file=str(out / "report.html")), out,
+            stream_chunk=6, report_file=str(out / "report.html"),
+            model_files=start), out,
             update_stats_callback=_watcher(seen[name], out), **kw)
     rj, rt = runs["jax"], runs["torch"]
     assert rt.success and rj.success
@@ -150,6 +160,10 @@ def test_engine_stream_with_imu_report_and_status(tmp_path, caplog):
         n = re.search(r"^span vicalib\.live\.%s: n=(\d+) s=" % name, log,
                       re.M)
         assert n and int(n.group(1)) == len(chunks) == 2, name
+    # the start from the first chunk's 6 frames
+    assert re.search(r"^span vicalib\.engine\.intr_start: n=1 s=", log, re.M)
+    assert re.search(r"^count vicalib\.engine\.intr_start_frames: 6$", log,
+                     re.M)
 
 
 def test_engine_checkpoint_then_resume(tmp_path, monkeypatch):

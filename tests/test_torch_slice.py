@@ -13,8 +13,14 @@ relative cost change), where the flat directions of the problem leave
 ~1e-3 px of slack in the intrinsics (measured 3e-4 px) and ~1e-6 in the
 extrinsic.  Both results must also pass the ground-truth checks of the JAX
 package's own visual-only engine test: success and rmse < 0.1 px per camera.
+
+The port starts the intrinsics from the target's homographies where the
+JAX package keeps upstream's fixed start, so both engines here are handed
+that fixed start as a ``-model_files`` preload: the comparison is of
+everything after the start.
 """
 import os
+import re
 
 import numpy as np
 import pytest
@@ -24,6 +30,7 @@ from vicalib_tpu.engine import VicalibEngine as JEngine
 from vicalib_tpu.io import sim as jsim
 from vicalib_tpu.io import sources as jsources
 from vicalib_tpu_torch.config import VicalibConfig as TConfig
+from vicalib_tpu_torch.cameras.models import default_params_np
 from vicalib_tpu_torch.engine import VicalibEngine as TEngine
 from vicalib_tpu_torch.io import outputs as t_out
 
@@ -51,15 +58,26 @@ def stereo(tmp_path_factory):
     return root, cfg, uri
 
 
-def _run(engine_cls, config_cls, uri, out, **kw):
+def _run(engine_cls, config_cls, uri, out, model_files="", **kw):
     cwd = os.getcwd()
     os.chdir(os.path.dirname(out))
     try:
         cfg = config_cls(cam=uri, models="linear,linear",
-                         use_only_when_static=False, output=out)
+                         use_only_when_static=False, output=out,
+                         model_files=model_files)
         return engine_cls(cfg, **kw).run()
     finally:
         os.chdir(cwd)
+
+
+def _fixed_start(path):
+    """A cameras.xml holding upstream's fixed start of both cameras (the
+    default intrinsics, identity extrinsics)."""
+    t_out.write_cameras_xml(
+        path, ["linear"] * 2, [default_params_np("linear", 400, 300)] * 2,
+        [(np.array([0.0, 0.0, 0.0, 1.0]), np.zeros(3))] * 2, [400] * 2,
+        [300] * 2, calibrate_imu=False)
+    return path
 
 
 def _xml(path):
@@ -73,8 +91,10 @@ def test_port_engine_matches_jax_engine(stereo, tmp_path):
     (tmp_path / "t").mkdir()
     xml_j = str(tmp_path / "j" / "cameras.xml")
     xml_t = str(tmp_path / "t" / "cameras.xml")
-    res_j = _run(JEngine, JConfig, uri, xml_j)
-    res_t = _run(TEngine, TConfig, uri, xml_t, device="cpu")
+    start = _fixed_start(str(tmp_path / "start.xml"))
+    res_j = _run(JEngine, JConfig, uri, xml_j, model_files=start)
+    res_t = _run(TEngine, TConfig, uri, xml_t, model_files=start,
+                 device="cpu")
     for res in (res_j, res_t):
         assert res.success
         assert max(res.stats.reprojection_error) < 0.1
@@ -107,6 +127,12 @@ def test_cli_main_writes_the_same_calibration(stereo, tmp_path):
     for a, b in zip(_xml(xml_cli), _xml(xml_e)):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+    # no preload: the intrinsics started from the homographies of both
+    # cameras' 12 frames
+    log = (tmp_path / "v.log").read_text()
+    assert re.search(r"^span vicalib\.engine\.intr_start: n=1 s=", log, re.M)
+    assert re.search(r"^count vicalib\.engine\.intr_start_frames: 24$", log,
+                     re.M)
 
 
 @pytest.mark.parametrize("layout", ["mono", "aligned", "async"])

@@ -17,6 +17,10 @@ keeps the cost churning at the 1e-6 function tolerance), and the poorly
 observed accel bias (12 frames) is left free to ~1e-3 (measured 5.5e-4;
 T_ck 2e-5, ts 2e-6).  Both results must also pass the JAX fixture test's
 own ground-truth checks (test_smoke_fixture.py).
+
+The port starts the intrinsics from the target's homographies where the
+JAX package keeps upstream's fixed start, so the two engines compared are
+both handed that fixed start as a ``-model_files`` preload.
 """
 import json
 import logging
@@ -28,6 +32,7 @@ import pytest
 
 from vicalib_tpu.config import VicalibConfig as JConfig
 from vicalib_tpu.engine import VicalibEngine as JEngine
+from vicalib_tpu_torch.cameras.models import default_params_np
 from vicalib_tpu_torch.config import VicalibConfig as TConfig
 from vicalib_tpu_torch.engine import VicalibEngine as TEngine
 from vicalib_tpu_torch.geometry import quat_np
@@ -46,10 +51,22 @@ def _run(engine_cls, config_cls, out_dir, **kw):
                          use_only_when_static=False, calibrate_imu=True,
                          use_system_time=False,
                          output=str(out_dir / "cameras.xml"),
-                         output_log_file=str(out_dir / "v.log"))
+                         output_log_file=str(out_dir / "v.log"),
+                         model_files=_fixed_start(out_dir / "start.xml"))
         return engine_cls(cfg, **kw).run()
     finally:
         os.chdir(cwd)
+
+
+def _fixed_start(path):
+    """A cameras.xml holding upstream's fixed start (the default
+    intrinsics, an identity T_ck), written as the engine writes a rig with
+    an IMU."""
+    t_out.write_cameras_xml(
+        str(path), ["linear"], [default_params_np("linear", 400, 300)],
+        [(np.array([0.0, 0.0, 0.0, 1.0]), np.zeros(3))], [400], [300],
+        calibrate_imu=True)
+    return str(path)
 
 
 class _Timings(logging.Handler):

@@ -16,9 +16,26 @@ import torch
 from ..geometry import se3, so3
 
 
-def _dlt_homography(xy_plane, xy_norm, w):
-    """Weighted DLT homography plane->normalized-image.
-    (..., N, 2), (..., N, 2), (..., N) -> (..., 3, 3)."""
+def _normalise(pts, w):
+    """Hartley normalisation of points (..., N, 2) under weights (..., N):
+    the points moved to their weighted centroid and scaled to unit rms
+    distance, and the (..., 3, 3) transform that does it."""
+    sw = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
+    mu = torch.sum(pts * w[..., None], dim=-2) / sw               # (..., 2)
+    sc = torch.sqrt(torch.sum(w[..., None] * (pts - mu[..., None, :]) ** 2,
+                              dim=(-2, -1)) / sw[..., 0]) + 1e-9
+    z = torch.zeros_like(sc)
+    o = torch.ones_like(sc)
+    T = torch.stack([
+        torch.stack([1 / sc, z, -mu[..., 0] / sc], dim=-1),
+        torch.stack([z, 1 / sc, -mu[..., 1] / sc], dim=-1),
+        torch.stack([z, z, o], dim=-1)], dim=-2).to(pts.dtype)
+    return (pts - mu[..., None, :]) / sc[..., None, None], T
+
+
+def _dlt_normal(xy_plane, xy_norm, w):
+    """A^T A of the weighted DLT of a plane->image homography.
+    (..., N, 2), (..., N, 2), (..., N) -> (..., 9, 9)."""
     x, y = xy_plane[..., 0], xy_plane[..., 1]
     u, v = xy_norm[..., 0], xy_norm[..., 1]
     z = torch.zeros_like(x)
@@ -26,8 +43,14 @@ def _dlt_homography(xy_plane, xy_norm, w):
     rows_u = torch.stack([x, y, o, z, z, z, -u * x, -u * y, -u], dim=-1)
     rows_v = torch.stack([z, z, z, x, y, o, -v * x, -v * y, -v], dim=-1)
     A = torch.cat([rows_u * w[..., None], rows_v * w[..., None]], dim=-2)
+    return A.transpose(-1, -2) @ A
+
+
+def _dlt_homography(xy_plane, xy_norm, w):
+    """Weighted DLT homography plane->normalized-image.
+    (..., N, 2), (..., N, 2), (..., N) -> (..., 3, 3)."""
     # smallest right singular vector of A == eigenvector of A^T A
-    _, evecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, evecs = torch.linalg.eigh(_dlt_normal(xy_plane, xy_norm, w))
     h = evecs[..., :, 0]
     return h.reshape(h.shape[:-1] + (3, 3))
 
@@ -57,24 +80,9 @@ def pnp_planar(rays_xy, p3d_xy, valid):
     """Pose T_cw from plane points.  rays_xy: (..., N, 2) normalized image
     coords, p3d_xy: (..., N, 2) plane coords (z=0), valid: (..., N) 0/1
     weights.  Returns (q_cw (..., 4), t_cw (..., 3))."""
-    dtype = rays_xy.dtype
     w = valid / torch.clamp(torch.sum(valid, dim=-1, keepdim=True), min=1.0)
-    sw = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
-
-    def norm_xf(pts):
-        mu = torch.sum(pts * w[..., None], dim=-2) / sw          # (..., 2)
-        sc = torch.sqrt(torch.sum(w[..., None] * (pts - mu[..., None, :]) ** 2,
-                                  dim=(-2, -1)) / sw[..., 0]) + 1e-9
-        z = torch.zeros_like(sc)
-        o = torch.ones_like(sc)
-        T = torch.stack([
-            torch.stack([1 / sc, z, -mu[..., 0] / sc], dim=-1),
-            torch.stack([z, 1 / sc, -mu[..., 1] / sc], dim=-1),
-            torch.stack([z, z, o], dim=-1)], dim=-2).to(dtype)
-        return (pts - mu[..., None, :]) / sc[..., None, None], T
-
-    pn, Tp = norm_xf(p3d_xy.expand_as(rays_xy))
-    rn, Tr = norm_xf(rays_xy)
+    pn, Tp = _normalise(p3d_xy.expand_as(rays_xy), w)
+    rn, Tr = _normalise(rays_xy, w)
     Hn = _dlt_homography(pn, rn, valid)
     H = torch.linalg.solve(Tr, Hn @ Tp)
     R, t = _pose_from_homography(H)

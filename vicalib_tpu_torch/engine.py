@@ -241,11 +241,12 @@ class VicalibEngine:
 
     def _run_streaming(self, cfg, model_names, sel_times, pixels, visible,
                        imu, widths, heights, dtype, options,
-                       time_offset_guess, stats, write_outputs=True):
+                       time_offset_guess, stats, intr0, write_outputs=True):
         """-stream_chunk N: incremental calibration during (replayed)
         capture — the reference's background-solver live mode
         (vicalib-engine.cc:375-433).  Frames are fed in chunks of N with
-        IMU interleaved by time; stats are published after every chunk."""
+        IMU interleaved by time, from the start ``intr0``; stats are
+        published after every chunk."""
         from . import viz
         from .report import write_html_report
         from .streaming import StreamingCalibrator
@@ -292,7 +293,8 @@ class VicalibEngine:
             gyro_sigma=cfg.gyro_sigma, accel_sigma=cfg.accel_sigma,
             stats_callback=publish, time_offset_guess=time_offset_guess,
             remove_outliers=cfg.remove_outliers,
-            outlier_threshold=cfg.outlier_threshold, device=self.device)
+            outlier_threshold=cfg.outlier_threshold, intr0=intr0,
+            device=self.device)
         cursor = 0
         sel_times = np.asarray(sel_times)
         for lo in range(0, F, cfg.stream_chunk):
@@ -544,6 +546,14 @@ class VicalibEngine:
                                           and cfg.find_time_offset
                                           and cfg.calibrate_imu))
         with obs.span("vicalib.engine.build") as sp:
+            if intr0 is None:
+                # no preload: start from the target's homographies, in live
+                # mode from the first chunk's frames alone
+                from .solver.intr_start import start_intrinsics
+                first = cfg.stream_chunk if cfg.stream_chunk > 0 else F
+                intr0 = start_intrinsics(
+                    model_names, pixels[:, :first], visible[:, :first],
+                    self.target.circles_3d(), widths, heights)
             if cfg.stream_chunk > 0:
                 # streaming does its own incremental problem builds; keep the
                 # time-offset refinement: PnP poses from a visual-only build,
@@ -609,7 +619,7 @@ class VicalibEngine:
                 result, data = self._run_streaming(
                     cfg, model_names, sel_times, pixels, visible, imu,
                     widths, heights, dtype, options, time_offset_guess,
-                    stats, write_outputs=write_outputs)
+                    stats, intr0, write_outputs=write_outputs)
             else:
                 result = run_staged(
                     state, data, flags, options,

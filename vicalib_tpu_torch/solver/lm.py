@@ -258,14 +258,23 @@ def _weights_body(data, loop: _LoopState, sigmas):
 class _ThreadState(threading.local):
     """What the graph path keeps per thread, as the CUDA libraries keep
     their handles: each device's capture stream (the libraries' workspaces
-    are made per stream, so one stream makes them once), and the (device,
-    key) of the bodies that have run.  A body's first run on a device makes
-    the handles and workspaces that a capture may not make, so it runs
-    eagerly (an iteration's real work); from then on every solver captures
-    the body at its first run."""
+    are made per stream, so one stream makes them once) and graph memory
+    pool, and the (device, key) of the bodies that have run.  A body's
+    first run on a device makes the handles and workspaces that a capture
+    may not make, so it runs eagerly (an iteration's real work); from then
+    on every solver captures the body at its first run.  The caching
+    allocator keeps a pool's memory reserved after its graphs are gone and
+    gives it to no other pool, so a pool per solver grew the reserved
+    memory by every solver's graphs (3.3 GB a calibration of the EuRoC rig,
+    until the card ran out); the solvers of a thread capture into one
+    pool, which reuses the memory of the graphs that went.  A pool whose
+    last graph has gone takes no further capture (in the device's and the
+    pinned host memory's allocators alike), so a one-kernel graph captured
+    into it with the pool, and kept here, holds it open."""
 
     def __init__(self):
         self.streams = {}
+        self.pools = {}
         self.warm = set()
 
 
@@ -277,18 +286,37 @@ class _Graphs:
     branches on on the host (``("step", rotation_only)``, ``"weights"``).
     A key is captured at its first run in the solver (its first run in the
     thread is eager, see :class:`_ThreadState`) and replayed at every later
-    one.  Every graph of the solver draws on one private memory pool and is
-    captured on the thread's side stream, on which the whole loop runs
-    (:meth:`side_stream`); the graphs and the pool go with the solver."""
+    one.  Every graph draws on the thread's private memory pool for the
+    device and is captured on the thread's side stream, on which the whole
+    loop runs (:meth:`side_stream`); the graphs go with the solver.  A
+    solver's graphs replay one at a time, each leaving its results in the
+    loop state's buffers (outside the pool), so they may share the pool's
+    memory with one another and with the graphs of solvers gone before."""
 
     def __init__(self, device):
         self.device = device
-        streams = _THREAD.streams
-        if device not in streams:
-            streams[device] = torch.cuda.Stream(device)
-        self.stream = streams[device]
-        self.pool = torch.cuda.graph_pool_handle()
+        if device not in _THREAD.streams:
+            _THREAD.streams[device] = torch.cuda.Stream(device)
+            _THREAD.pools[device] = self._anchored_pool(
+                device, _THREAD.streams[device])
+        self.stream = _THREAD.streams[device]
+        self.pool = _THREAD.pools[device][0]
         self.graphs = {}
+
+    @staticmethod
+    def _anchored_pool(device, stream):
+        """A new graph pool and the graph (with its one buffer) that keeps
+        it open: (pool, graph, buffer)."""
+        pool = torch.cuda.graph_pool_handle()
+        buf = torch.zeros((), device=device)
+        graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool,
+                                capture_error_mode="thread_local")
+            buf.add_(1)
+            graph.capture_end()
+        return pool, graph, buf
 
     @contextlib.contextmanager
     def side_stream(self):

@@ -64,8 +64,11 @@ class StreamingCalibrator:
     """Feed detections chunk by chunk; re-solve after each chunk.
 
     Args mirror build_problem: ``model_names``, target ``points_3d``
-    (P, 3), per-camera ``widths``/``heights``; IMU streams may extend with
-    each chunk.
+    (P, 3), per-camera ``widths``/``heights``, the start ``intr0`` (per
+    camera, None for the model's default); IMU streams may extend with
+    each chunk.  The first chunk starts from ``intr0``, and every chunk's
+    new frames take their PnP poses through it; later chunks carry the
+    estimate over.
     """
 
     def __init__(self, model_names, points_3d, widths=None, heights=None,
@@ -73,7 +76,7 @@ class StreamingCalibrator:
                  optimize_time_offset=True, options=None,
                  gyro_sigma=None, accel_sigma=None, stats_callback=None,
                  time_offset_guess=0.0, remove_outliers=False,
-                 outlier_threshold=2.0, device="cuda"):
+                 outlier_threshold=2.0, intr0=None, device="cuda"):
         self.device = resolve_device(device)
         self.model_names = list(model_names)
         self.points_3d = np.asarray(points_3d)
@@ -90,6 +93,7 @@ class StreamingCalibrator:
         self.time_offset_guess = float(time_offset_guess)
         self.remove_outliers = bool(remove_outliers)
         self.outlier_threshold = float(outlier_threshold)
+        self.intr0 = intr0
         self.last_result = None        # StagedResult of the latest solve
         self._last_data = None         # ProblemData of the latest solve
         self._last_flags = None
@@ -172,7 +176,7 @@ class StreamingCalibrator:
             data, state = build_problem(
                 self.model_names, times, pixels, visible, self.points_3d,
                 widths=self.widths, heights=self.heights, dtype=self.dtype,
-                device=self.device, **kw)
+                device=self.device, intr0=self.intr0, **kw)
 
             if self._state is not None:
                 state = self._carry_state(state, data.n_frames)
