@@ -3,6 +3,8 @@
   python3 chip_smoke.py              # all phases (needs one CUDA card)
   python3 chip_smoke.py --profile    # also trace the main path with
                                      # torch.profiler (device time by kernel)
+  python3 chip_smoke.py --kernels-only   # phases 1-3: build and check
+                                         # the kernels
 
 Phases, in order; any failure exits non-zero:
   1. the device: torch's name for it and nvidia-smi's name and power limit;
@@ -12,7 +14,19 @@ Phases, in order; any failure exits non-zero:
      stereo frames) plus edge cases (synthetic frames, inverted and noise
      frames, other sweep bounds, one frame): labels must agree bit for bit;
      times from CUDA events (median of 12 after warm-up), device launches
-     per call from torch.profiler;
+     per call from torch.profiler.  Then the IMU factor kernel
+     (``imu_factor``) at the VI cells' shapes (the vi_sim rig: 191 factors
+     at 10 Hz / 100 Hz; the EuRoC rig: 399 factors at 20 Hz / 200 Hz;
+     windows of the engine's 0.35 s slack), in float64 and float32: the
+     residual and Jacobian (C = 1) and the value of 3 candidates (C = 3),
+     rotation-only on and off, and a zero time offset with the stamps on
+     the frame grid and some factors without measurements; held to its
+     plain twin (``imu_factor_plain``) and, in float64, to the
+     ``torch.func`` path, within 1e-10 of the largest entry; in float32
+     the kernel's distance from the float64 twin on the same inputs
+     within 10 times the float32 twin's and within 1e-3 of the largest
+     entry; its time beside its bound and
+     the plain paths';
   4. the visual path at full width: 192 stereo 800x600 frames rendered by
      the port's simulator, written as PGM files and calibrated through
      ``vicalib_tpu_torch.cli.main`` (the linear model, camera-only); the
@@ -27,7 +41,8 @@ Phases, in order; any failure exits non-zero:
      inertial-full+scale).  Gates: every camera's T_ck within 1e-3
      (|se3.log(T_est T_true^-1)|, read from the log file), rmse < 0.12 px,
      intrinsics within 0.5 px, |ts - 0.004| < 2e-3 s, and the kernel
-     launched during the phase.  Prints the stage table (iterations, cost,
+     launched during the phase, every IMU factor through the IMU factor
+     kernel.  Prints the stage table (iterations, cost,
      wall time), the biases and the phase seconds; with ``--profile`` also
      the device's busy share and top kernels of the VI run.  Then the LM
      loop's CUDA graphs against its eager loop on the same problem: the
@@ -87,6 +102,7 @@ Imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -117,8 +133,21 @@ SHARD_TOL = {"rmse_rtol": 2e-3, "q_ck": 1e-5, "biases": 1e-4, "ts": 1e-5}
 GRAPH_TOL = {"intr_px": 1e-6, "T_ck": 1e-9, "biases": 1e-9, "ts": 1e-9}
 # the two-process phase: seconds before both processes are killed
 TWO_PROCESS_TIMEOUT_S = 400
-REPLACES = {"threshold_and_label": "vicalib_tpu/detect/pallas_kernels.py:194"}
-SOURCES = {"threshold_and_label": "vicalib_tpu_torch/csrc/threshold_label.cu"}
+# H100 SXM float64 outside the tensor cores, an FMA counted as two
+FP64_FLOPS_PER_S = 34e12
+# the IMU factor kernel in float64 against its plain twin and the
+# torch.func path: largest difference over the largest entry
+IMU_TOL = 1e-10
+# in float32, against the twin in float64 on the same inputs: at most this
+# many times the float32 twin's own error, and never above the ceiling
+IMU_F32_FACTOR = 10.0
+IMU_F32_CEIL = 1e-3
+REPLACES = {"threshold_and_label": "vicalib_tpu/detect/pallas_kernels.py:194",
+            "imu_factor": "none: the JAX package leaves the IMU factor to "
+                          "XLA; added for the ~4,400 autodiff ops an LM step "
+                          "that it replaces"}
+SOURCES = {"threshold_and_label": "vicalib_tpu_torch/csrc/threshold_label.cu",
+           "imu_factor": "vicalib_tpu_torch/csrc/imu_factor.cu"}
 
 
 def fail(msg):
@@ -386,6 +415,259 @@ def kernel_phase(dev):
     return [row]
 
 
+def imu_problem(dev, n_frames, frame_rate, imu_rate):
+    """The IMU factors of the simulator's stereo VI rig at the given rates
+    as the engine builds them (windows of 0.35 s slack), and a state near
+    the truth: (ImuFactors, CalibState)."""
+    from vicalib_tpu_torch.imu.buffer import build_windows, gather_windows
+    from vicalib_tpu_torch.io import sim
+    from vicalib_tpu_torch.solver.problem import CalibState
+    from vicalib_tpu_torch.solver.residuals import ImuFactors
+
+    cfg = sim.default_stereo_vi_config(
+        n_frames=n_frames, model="linear", distance=0.35, orbit_radius=0.12,
+        frame_rate=frame_rate, imu_rate=imu_rate, gyro_bias=VI_GYRO_BIAS,
+        accel_bias=VI_ACCEL_BIAS, time_offset=VI_TIME_OFFSET)
+    data = sim.simulate(cfg, device=dev)
+    win = build_windows(data.imu_times, data.frame_times, slack=0.35)
+    wt, wg, wa = gather_windows(data.imu_times, data.gyro, data.accel,
+                                win["idx0"], win["n_slots"])
+
+    def T(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                               device=dev)
+
+    F = len(data.frame_times)
+    imu = ImuFactors(win_times=T(wt), win_gyro=T(wg), win_accel=T(wa),
+                     start=T(win["start"]), end=T(win["end"]),
+                     has_meas=torch.as_tensor(win["has_meas"], device=dev),
+                     frame_i=torch.arange(F - 1, device=dev),
+                     consecutive=True, slack=0.35)
+    rng = np.random.default_rng(5)
+    q_wk, t_wk = data.T_wk
+    z = torch.zeros((1, 4), dtype=torch.float64, device=dev)
+    state = CalibState(
+        q_wk=T(q_wk), t_wk=T(t_wk + 1e-3 * rng.standard_normal(t_wk.shape)),
+        v_w=T(data.v_w + 1e-3 * rng.standard_normal(data.v_w.shape)),
+        q_ck=z, p_ck=z[:, :3], intr=z, g_dir=T(cfg.g_dir),
+        biases=T(np.concatenate([VI_GYRO_BIAS, VI_ACCEL_BIAS])
+                 + 1e-3 * rng.standard_normal(6)),
+        scales=T(1.0 + 1e-3 * rng.standard_normal(6)),
+        time_offset=T(0.0031))
+    return imu, state
+
+
+def _on_grid(imu, state):
+    """Zero time offset with the stamps on the frame grid (ties at the
+    clip bounds), every seventh factor without measurements."""
+    wt = torch.round((imu.win_times + VI_TIME_OFFSET) * 1000.0) / 1000.0
+    has = imu.has_meas.clone()
+    has[::7] = False
+    ties = int((wt == imu.start[:, None]).sum()
+               + (wt == imu.end[:, None]).sum())
+    return (dataclasses.replace(imu, win_times=wt, has_meas=has),
+            state._replace(time_offset=torch.zeros_like(state.time_offset)),
+            ties)
+
+
+def _f32_pairs(xs, imu, W, ro, C, r, J, rt, Jt):
+    """The float32 kernel's and twin's results against the twin in
+    float64 on the same (float32) inputs."""
+    from vicalib_tpu_torch.imu import factor
+
+    up = (lambda x: x.double() if x.is_floating_point() else x)
+    r64, J64 = factor.imu_factor_plain(
+        tuple(up(x).contiguous() for x in xs), *[up(getattr(imu, f)) for f in (
+            "win_times", "win_gyro", "win_accel", "start", "end",
+            "has_meas", "frame_i")], up(W), ro, C == 1)
+    pairs = [("kernel r", r.double(), r64), ("twin r", rt.double(), r64)]
+    if C == 1:
+        pairs += [("kernel J", J.double(), J64), ("twin J", Jt.double(), J64)]
+    return pairs
+
+
+def _candidates(state):
+    """Three candidate states stacked as the LM step's trial state: the
+    state and two with moved frames, biases and time offset."""
+    outs = [state._replace(t_wk=state.t_wk + d, v_w=state.v_w - d,
+                           biases=state.biases + d,
+                           time_offset=state.time_offset + 0.1 * d)
+            for d in (0.0, 1e-4, -2e-4)]
+    return type(state)(*[torch.stack(xs) for xs in zip(*outs)])
+
+
+def _twin_ops(fn):
+    """Float arithmetic element-operations of one call of ``fn`` (each
+    output element of an arithmetic op counts one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    names = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "sin", "cos",
+             "atan2", "maximum", "minimum", "clamp", "sum", "cumsum"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func._schema.name.split("::")[-1] in names and isinstance(
+                    out, torch.Tensor) and out.is_floating_point():
+                Count.n += out.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def imu_kernel_phase(dev):
+    """Phase 3, the IMU factor kernel: see the module docstring."""
+    from torch.func import vmap
+
+    from vicalib_tpu_torch import obs
+    from vicalib_tpu_torch.imu import factor
+    from vicalib_tpu_torch.solver import residuals as res
+
+    shapes = {"vi_sim": (192, 10.0, 100.0), "euroc": (400, 20.0, 200.0)}
+    out = {}
+    worst = 0.0
+    for name, (F, fr, ir) in shapes.items():
+        imu64, st64 = imu_problem(dev, F, fr, ir)
+        K, M = imu64.win_times.shape
+        gen = torch.Generator(device=dev).manual_seed(11)
+        W64 = (30.0 * torch.eye(9, dtype=torch.float64, device=dev)
+               + torch.randn(K, 9, 9, generator=gen, dtype=torch.float64,
+                             device=dev))
+        grid64, gst64, ties = _on_grid(imu64, st64)
+        log("IMU factor kernel, %s shapes: K=%d factors of M=%d slots, %d "
+            "stamps on a clip bound in the grid case" % (name, K, M, ties))
+        for dtype in (torch.float64, torch.float32):
+            cast = (lambda x: x.to(dtype) if x.is_floating_point() else x)
+            W = W64.to(dtype)
+            for case, imu0, st0 in (("offset", imu64, st64),
+                                    ("grid", grid64, gst64)):
+                imu = dataclasses.replace(imu0, **{
+                    f: cast(getattr(imu0, f)) for f in (
+                        "win_times", "win_gyro", "win_accel", "start",
+                        "end")})
+                st = type(st0)(*[cast(x) for x in st0])
+                trial = _candidates(st)
+                for ro, C in ((False, 1), (True, 1), (False, 3), (True, 3)):
+                    s = trial if C == 3 else st
+                    kst = res._imu_kernel
+                    r, J = kst(s, imu, W, ro, jac=C == 1, candidates=C == 3)
+                    xs = (s.q_wk, s.t_wk, s.v_w, s.g_dir, s.biases,
+                          s.scales, s.time_offset)
+                    if C == 1:
+                        xs = tuple(x[None] for x in xs)
+                    rt, Jt = factor.imu_factor_plain(
+                        tuple(x.contiguous() for x in xs), imu.win_times,
+                        imu.win_gyro, imu.win_accel, imu.start, imu.end,
+                        imu.has_meas, imu.frame_i, W, ro, C == 1)
+                    pairs = [("twin r", r, rt)]
+                    if C == 1:
+                        pairs.append(("twin J", J, Jt))
+                    if dtype == torch.float32:
+                        pairs = _f32_pairs(xs, imu, W, ro, C, r, J, rt, Jt)
+                    elif C == 1:
+                        ra, J1, J2, Js = res._imu_jacobians_autodiff(
+                            st, imu, W, ro)
+                        pairs += [("torch.func r", r[0], ra),
+                                  ("torch.func J", J[0],
+                                   torch.cat([J1, J2, Js], dim=2))]
+                    else:
+                        ra = torch.stack([res._imu_residuals_autodiff(
+                            type(st)(*[x[c] for x in trial]), imu, W, ro)
+                            for c in range(3)])
+                        pairs.append(("torch.func r", r, ra))
+                    torch.cuda.synchronize()
+                    errs = {}
+                    for label, a, b in pairs:
+                        errs[label] = float((a - b).abs().max()
+                                            / b.abs().max().clamp(min=1e-300))
+                    if dtype == torch.float64:
+                        bad = {k: e for k, e in errs.items()
+                               if not e <= IMU_TOL}
+                        worst = max([worst] + list(errs.values()))
+                    else:
+                        bad = {k: e for k, e in errs.items() if k.startswith(
+                            "kernel") and not e <= min(
+                                IMU_F32_FACTOR * errs[k.replace("kernel",
+                                                                "twin")],
+                                IMU_F32_CEIL)}
+                    if bad:
+                        fail("IMU factor kernel, %s %s %s C=%d "
+                             "rotation_only=%s: %s (float64: above %g; "
+                             "float32: above %g times the twin's or %g)"
+                             % (name, str(dtype), case, C, ro, bad, IMU_TOL,
+                                IMU_F32_FACTOR, IMU_F32_CEIL))
+                    log("  %s %-7s %-6s C=%d rotation_only=%-5s %s"
+                        % (name, str(dtype)[6:], case, C, ro,
+                           " ".join("%s %.2e" % kv for kv in errs.items())))
+        # times at these shapes, float64
+        trial = _candidates(st64)
+        jac = lambda: res._imu_kernel(st64, imu64, W64, False, jac=True)
+        val = lambda: res._imu_kernel(trial, imu64, W64, False, jac=False,
+                                      candidates=True)
+        xs = tuple(x[None].contiguous() for x in (
+            st64.q_wk, st64.t_wk, st64.v_w, st64.g_dir, st64.biases,
+            st64.scales, st64.time_offset))
+        twin = lambda: factor.imu_factor_plain(
+            xs, imu64.win_times, imu64.win_gyro, imu64.win_accel,
+            imu64.start, imu64.end, imu64.has_meas, imu64.frame_i, W64,
+            False, True)
+        with obs.recording() as rec:
+            jac()
+            val()
+        # a kernel's time from 20 launches back to back (one launch alone
+        # would time the host's enqueue too)
+        row = {"K": K, "M": M, "F": F,
+               "launches_per_call": rec.count("vicalib.imu.kernel_launches")
+               / 2,
+               "jac_ms": time_ms(lambda: [jac() for _ in range(20)]) / 20,
+               "value_c3_ms": time_ms(lambda: [val() for _ in range(20)])
+               / 20,
+               "plain_jac_ms": time_ms(lambda: res._imu_jacobians_autodiff(
+                   st64, imu64, W64, False)),
+               "plain_value_c3_ms": time_ms(lambda: vmap(
+                   lambda x: res._imu_residuals_autodiff(
+                       type(st64)(*x), imu64, W64, False))(tuple(trial))),
+               "twin_jac_ms": time_ms(twin),
+               "host_jac_ms": host_time_ms(jac),
+               "device_launches_plain_jac": device_launches(
+                   lambda: res._imu_jacobians_autodiff(st64, imu64, W64,
+                                                       False))}
+        # bytes: the windows, bounds, flags, frame indices, weights and
+        # frames read once, r and J written once
+        nbytes = (8 * (K * M * 7 + 2 * K + 81 * K + 10 * F + 15
+                       + 9 * K + 9 * 33 * K) + 9 * K)
+        ops = _twin_ops(twin)
+        # the bound is the bytes; the twin's element operations (every
+        # lane, both sides of every select) at the float64 peak are an
+        # estimate of the arithmetic, not a bound
+        row.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   bytes=nbytes, twin_ops=ops,
+                   twin_ops_ms=ops / FP64_FLOPS_PER_S * 1e3)
+        log("IMU factor kernel, %s: residual+Jacobian %.4f ms (host "
+            "enqueue %.4f ms), value of 3 candidates %.4f ms; torch.func "
+            "%.4f / %.4f ms, twin %.4f ms; bound %.4f ms (bytes: %d); the "
+            "twin's %d float64 element operations %.4f ms at the peak; "
+            "launches per call: kernel %g, torch.func %s device kernels"
+            % (name, row["jac_ms"], row["host_jac_ms"], row["value_c3_ms"],
+               row["plain_jac_ms"], row["plain_value_c3_ms"],
+               row["twin_jac_ms"], row["bound_ms"], nbytes, ops,
+               row["twin_ops_ms"], row["launches_per_call"],
+               row["device_launches_plain_jac"]))
+        out[name] = row
+    e = out["euroc"]
+    return [{"name": "imu_factor", "route": "cuda",
+             "source": SOURCES["imu_factor"],
+             "replaces": REPLACES["imu_factor"], "launches": None,
+             "max_rel_err_f64": worst, "ms": e["jac_ms"],
+             "plain_ms": e["plain_jac_ms"], "bound_ms": e["bound_ms"],
+             "bound_by": e["bound_by"], "library_ms": None,
+             "shapes": out}]
+
+
 class _Capture(logging.Handler):
     """The engine's phase seconds and the streaming calibrator's chunk rows,
     from the structured extras of their log records."""
@@ -430,9 +712,10 @@ def _device_profile(prof, wall_s, top=15):
 
 
 def _launches(rec):
-    """The CUDA kernel's launches in a recording (obs.py)."""
+    """The CUDA kernels' launches in a recording (obs.py)."""
     return {"threshold_and_label": rec.count(
-        "vicalib.detect.kernel_launches")}
+        "vicalib.detect.kernel_launches"),
+        "imu_factor": rec.count("vicalib.imu.kernel_launches")}
 
 
 def run_cli(dev, argv, profile=False, chunks=None, sharded=None):
@@ -469,9 +752,16 @@ def run_cli(dev, argv, profile=False, chunks=None, sharded=None):
         % (rc, wall, cap.timings, launches))
     if rc != 0:
         fail("cli.main returned %d" % rc)
+    imu = "-imu" in argv
     for k, n in launches.items():
-        if n <= 0:
+        if n <= 0 and (k != "imu_factor" or imu):
             fail("kernel %s was not launched on this path" % k)
+    if imu:
+        n, nk = (rec.count("vicalib.imu.factors"),
+                 rec.count("vicalib.imu.kernel_factors"))
+        log("IMU factors evaluated %d, by the kernel %d" % (n, nk))
+        if n <= 0 or nk != n:
+            fail("%d of %d IMU factors went through the kernel" % (nk, n))
     if chunks is not None:
         chunks.extend(cap.chunks)
     if sharded is not None:
@@ -925,7 +1215,8 @@ _CLI_WORKER = (
     "alter_sys=True)\n"
     "    finally:\n"
     "        print('KERNEL_LAUNCHES ' + json.dumps({'threshold_and_label': "
-    "rec.count('vicalib.detect.kernel_launches')}), flush=True)\n")
+    "rec.count('vicalib.detect.kernel_launches'), 'imu_factor': "
+    "rec.count('vicalib.imu.kernel_launches')}), flush=True)\n")
 
 
 def two_process_phase(cfg, root, dirs, ref):
@@ -1085,6 +1376,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="trace the main path with torch.profiler")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (build and check the kernels)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
@@ -1097,11 +1390,18 @@ def main():
         % (kind, torch.cuda.device_count(), smi))
     log(sys.version.split()[0], torch.__version__, torch.version.cuda)
 
+    from vicalib_tpu_torch.imu import factor
+
     t0 = time.time()
     kernels.build(verbose=True)
+    factor.build(verbose=True)
     log("kernel build: %.2f s" % (time.time() - t0))
 
-    rows = kernel_phase(dev)
+    rows = kernel_phase(dev) + imu_kernel_phase(dev)
+    if args.kernels_only:
+        log(json.dumps({"kernels": rows}))
+        log(json.dumps({"ok": True, "phases": "1-3"}))
+        return
     (launches, timings, wall, rmse, err), rect = main_path_phase(
         dev, N_FRAMES, profile=args.profile)
     log("visual path: %s" % json.dumps(

@@ -31,21 +31,16 @@ it to one sweep at a time bit for bit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 
 import torch
 import torch.nn.functional as F
 
 from .. import obs
+from ..device import nvcc_library
 
 BIG = torch.iinfo(torch.int32).max
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "threshold_label.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 # labels are 1-based flat indices in int32, and INT_MAX marks "unlabelled"
 _MAX_PIXELS = BIG - 1
 # the threshold pass keeps 32 rows of (128 + 2r) | 1 int32 column sums in the
@@ -56,12 +51,6 @@ _lib = None
 _lock = threading.Lock()
 
 
-def _nvcc():
-    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                        "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
 def build(verbose=False):
     """Compile csrc/threshold_label.cu for sm_90a into build/ (once per
     source version) and load it.  Returns the ctypes library."""
@@ -69,22 +58,7 @@ def build(verbose=False):
     with _lock:
         if _lib is not None:
             return _lib
-        with open(_SRC, "rb") as f:
-            tag = hashlib.sha256(f.read()).hexdigest()[:12]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"libthreshold_label_{tag}.so")
-        if not os.path.exists(so):
-            tmp = "%s.%d.tmp" % (so, os.getpid())
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, _SRC]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed (%d):\n%s%s" % (
-                    res.returncode, res.stdout, res.stderr))
-            if verbose:
-                print(res.stdout + res.stderr)
-            os.replace(tmp, so)
+        so = nvcc_library("threshold_label.cu", verbose=verbose)
         lib = ctypes.CDLL(so)
         fn = lib.vt_threshold_and_label
         fn.argtypes = ([ctypes.c_void_p] * 8

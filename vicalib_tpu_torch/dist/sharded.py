@@ -19,9 +19,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.func import vmap
 
-from ..solver.assemble import ProblemData, assemble, robust_costs
+from ..solver.assemble import (ProblemData, assemble, robust_costs,
+                               trial_costs)
 from ..solver.lm import LMOptions
 from ..solver.problem import CalibState
 from ..solver.residuals import CameraObs, ImuFactors
@@ -184,12 +184,9 @@ class ShardedProblem:
         """Robust cost of each candidate of a batched trial state
         (n_cand,), summed over every shard."""
         dev = trial_b.t_wk.device
-        parts = []
-        for data, d, w in self._shards(weights):
-            s = _to(trial_b, d)
-            parts.append((vmap(lambda st: robust_costs(
-                CalibState(*st), data, w, _to(inertial_scale, d),
-                rotation_only)[0])(tuple(s)),))
+        parts = [(trial_costs(_to(trial_b, d), data, w,
+                              _to(inertial_scale, d), rotation_only),)
+                 for data, d, w in self._shards(weights)]
         return self._sum(parts, dev)[0]
 
     def agree(self, flag: bool) -> bool:

@@ -18,12 +18,13 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F_
+from torch.func import vmap
 
 from .problem import CalibState, SharedLayout
 from .residuals import (CameraObs, ImuFactors, imu_residuals,
-                        imu_residuals_and_jacobians, reproj_frame_gram_fast,
-                        reproj_frame_sq, reproj_residuals,
-                        reproj_residuals_and_jacobians)
+                        imu_residuals_and_jacobians, imu_trial_residuals,
+                        reproj_frame_gram_fast, reproj_frame_sq,
+                        reproj_residuals, reproj_residuals_and_jacobians)
 from .robust import Cauchy, SoftL1
 
 
@@ -58,11 +59,9 @@ def _row_gram(state: CalibState, obs: CameraObs, cam: int, model_name: str,
     return s, G
 
 
-def robust_costs(state: CalibState, data: ProblemData, weight_sqrt,
-                 inertial_scale, rotation_only,
-                 reproj_loss=SoftL1(0.5), imu_loss=Cauchy(100.0)):
-    """Total robust cost (0.5 * sum rho(|r|^2), the Ceres convention) plus
-    per-camera raw squared-error sums and observation counts for RMSE."""
+def _reproj_costs(state: CalibState, data: ProblemData, reproj_loss):
+    """The reprojection terms' robust cost and per-camera raw squared-error
+    sums and observation counts."""
     cost = state.t_wk.new_zeros(())
     cam_sq, cam_cnt = [], []
     for c, obs in enumerate(data.obs):
@@ -75,12 +74,42 @@ def robust_costs(state: CalibState, data: ProblemData, weight_sqrt,
         cost = cost + 0.5 * torch.sum(reproj_loss.rho(s))
         cam_sq.append(torch.sum(s))
         cam_cnt.append(torch.sum(obs.valid))
+    return cost, cam_sq, cam_cnt
+
+
+def _imu_cost(r, inertial_scale, imu_loss):
+    """The robust cost of IMU residuals r (..., K, 9), per leading index."""
+    r = r * inertial_scale
+    s = torch.sum(r * r, dim=-1)
+    return 0.5 * torch.sum(imu_loss.rho(s), dim=-1)
+
+
+def robust_costs(state: CalibState, data: ProblemData, weight_sqrt,
+                 inertial_scale, rotation_only,
+                 reproj_loss=SoftL1(0.5), imu_loss=Cauchy(100.0)):
+    """Total robust cost (0.5 * sum rho(|r|^2), the Ceres convention) plus
+    per-camera raw squared-error sums and observation counts for RMSE."""
+    cost, cam_sq, cam_cnt = _reproj_costs(state, data, reproj_loss)
     if data.imu is not None:
         r = imu_residuals(state, data.imu, weight_sqrt, rotation_only)
-        r = r * inertial_scale
-        s = torch.sum(r * r, dim=1)
-        cost = cost + 0.5 * torch.sum(imu_loss.rho(s))
+        cost = cost + _imu_cost(r, inertial_scale, imu_loss)
     return cost, torch.stack(cam_sq), torch.stack(cam_cnt)
+
+
+def trial_costs(trial_b: CalibState, data: ProblemData, weight_sqrt,
+                inertial_scale, rotation_only,
+                reproj_loss=SoftL1(0.5), imu_loss=Cauchy(100.0)):
+    """The total robust cost of each candidate of a batched trial state
+    (every tensor with a leading candidate dimension), (n_cand,): the
+    reprojection terms vmapped over the candidates, the IMU terms of all
+    candidates in one evaluation (residuals.imu_trial_residuals)."""
+    cost_b = vmap(lambda s: _reproj_costs(CalibState(*s), data,
+                                          reproj_loss)[0])(tuple(trial_b))
+    if data.imu is not None:
+        r = imu_trial_residuals(trial_b, data.imu, weight_sqrt,
+                                rotation_only)
+        cost_b = cost_b + _imu_cost(r, inertial_scale, imu_loss)
+    return cost_b
 
 
 def assemble(state: CalibState, data: ProblemData, weight_sqrt,

@@ -39,7 +39,7 @@ import torch
 from torch.func import vmap
 
 from .. import obs
-from .assemble import ProblemData, assemble, robust_costs
+from .assemble import ProblemData, assemble, robust_costs, trial_costs
 from .problem import CalibState, retract
 from .schur import schur_solve
 from .weights import imu_weights
@@ -158,10 +158,8 @@ def _lm_step(data, state, lam, nu, weight_sqrt, fmask, smask, inertial_scale,
             lambda df, ds: retract(state, data.layout, df * fmask,
                                    ds * smask))(dxf_b, dxs_b))
         if whole:
-            cost_b = vmap(
-                lambda s: robust_costs(CalibState(*s), data, weight_sqrt,
-                                       inertial_scale, rotation_only)[0])(
-                tuple(trial_b))
+            cost_b = trial_costs(trial_b, data, weight_sqrt, inertial_scale,
+                                 rotation_only)
         else:
             cost_b = data.trial_costs(trial_b, weight_sqrt, inertial_scale,
                                       rotation_only)

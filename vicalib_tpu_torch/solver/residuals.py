@@ -5,9 +5,15 @@
   Jacobians; only the camera model's 2-D projection is differentiated, per
   point, with ``torch.func.jacfwd``.
 - VI factor (SwitchedFullImuCostFunction, ceres-cost-functions.h:379-490):
-  9-D per consecutive-frame pair, see imu.preintegrate.  Its Jacobians are
-  reverse-mode (``torch.func.jacrev``: 9 outputs against 33 tangent
-  inputs) in the tangent space at zero increment, vmapped over factors.
+  9-D per consecutive-frame pair, see imu.preintegrate.  On a CUDA state
+  one launch of the IMU factor kernel (imu.factor) evaluates every factor,
+  with its Jacobian by forward-mode duals, and every damping candidate's
+  factors at once; elsewhere the Jacobians are reverse-mode
+  (``torch.func.jacrev``: 9 outputs against 33 tangent inputs) in the
+  tangent space at zero increment, vmapped over factors.  Counters
+  ``vicalib.imu.factors`` (every factor evaluated, by either path) and
+  ``vicalib.imu.kernel_factors`` (those the kernel evaluated) count when
+  the Python runs, eagerly or at a CUDA graph's capture.
 """
 from __future__ import annotations
 
@@ -16,9 +22,11 @@ import dataclasses
 import torch
 from torch.func import jacfwd, jacrev, vmap
 
+from .. import obs
 from ..cameras import get_model
 from ..geometry import se3, so3
 from ..imu import preintegrate
+from ..imu.factor import imu_factor
 from .problem import CalibState
 
 
@@ -200,9 +208,38 @@ def _zero_increments(state):
     return z(9), z(9), z(2), z(6), z(6), z(1)
 
 
-def imu_residuals(state: CalibState, imu: ImuFactors, weight_sqrt,
-                  rotation_only: bool):
-    """(K, 9) residuals for all IMU factors; ``weight_sqrt`` (K, 9, 9)."""
+def _on_card(state: CalibState) -> bool:
+    """Whether the kernel evaluates the IMU factors of ``state``: a CUDA
+    state."""
+    return state.t_wk.device.type == "cuda"
+
+
+def _count_factors(n: int, kernel: bool):
+    obs.count("vicalib.imu.factors", n)
+    if kernel:
+        obs.count("vicalib.imu.kernel_factors", n)
+
+
+def _imu_kernel(state: CalibState, imu: ImuFactors, weight_sqrt,
+                rotation_only: bool, jac: bool, candidates: bool = False):
+    """The IMU factor kernel on ``state`` (with a leading candidate
+    dimension where ``candidates``): (r (C, K, 9), J (C, K, 9, 33) or
+    None)."""
+    xs = (state.q_wk, state.t_wk, state.v_w, state.g_dir, state.biases,
+          state.scales, state.time_offset)
+    if not candidates:
+        xs = tuple(x[None] for x in xs)
+    xs = tuple(x.contiguous() for x in xs)
+    if weight_sqrt is not None:
+        weight_sqrt = weight_sqrt.contiguous()
+    _count_factors(xs[0].shape[0] * imu.start.shape[0], kernel=True)
+    return imu_factor(xs, imu.win_times, imu.win_gyro, imu.win_accel,
+                      imu.start, imu.end, imu.has_meas, imu.frame_i,
+                      weight_sqrt, rotation_only, jac)
+
+
+def _imu_residuals_autodiff(state: CalibState, imu: ImuFactors, weight_sqrt,
+                            rotation_only: bool):
     pose1, pose2, arrs = _imu_args(state, imu)
     zeros = _zero_increments(state)
 
@@ -213,6 +250,29 @@ def imu_residuals(state: CalibState, imu: ImuFactors, weight_sqrt,
     return vmap(one)(pose1, pose2, *arrs, weight_sqrt)
 
 
+def imu_residuals(state: CalibState, imu: ImuFactors, weight_sqrt,
+                  rotation_only: bool):
+    """(K, 9) residuals for all IMU factors; ``weight_sqrt`` (K, 9, 9)."""
+    if _on_card(state):
+        return _imu_kernel(state, imu, weight_sqrt, rotation_only,
+                           jac=False)[0][0]
+    _count_factors(imu.start.shape[0], kernel=False)
+    return _imu_residuals_autodiff(state, imu, weight_sqrt, rotation_only)
+
+
+def imu_trial_residuals(trial_b: CalibState, imu: ImuFactors, weight_sqrt,
+                        rotation_only: bool):
+    """(C, K, 9) residuals of a batched trial state's C candidates (every
+    tensor of ``trial_b`` with a leading candidate dimension): one kernel
+    launch on the card, the candidates vmapped elsewhere."""
+    if _on_card(trial_b):
+        return _imu_kernel(trial_b, imu, weight_sqrt, rotation_only,
+                           jac=False, candidates=True)[0]
+    _count_factors(trial_b.t_wk.shape[0] * imu.start.shape[0], kernel=False)
+    return vmap(lambda s: _imu_residuals_autodiff(
+        CalibState(*s), imu, weight_sqrt, rotation_only))(tuple(trial_b))
+
+
 def imu_residuals_and_jacobians(state: CalibState, imu: ImuFactors,
                                 weight_sqrt, rotation_only: bool):
     """Residuals plus tangent Jacobians for all IMU factors.
@@ -220,6 +280,15 @@ def imu_residuals_and_jacobians(state: CalibState, imu: ImuFactors,
     Returns (r (K,9), J1 (K,9,9), J2 (K,9,9), J_sh (K,9,15)) where the shared
     columns are [g(2), biases(6), scales(6), time_offset(1)].
     """
+    if _on_card(state):
+        r, J = _imu_kernel(state, imu, weight_sqrt, rotation_only, jac=True)
+        return r[0], J[0, ..., :9], J[0, ..., 9:18], J[0, ..., 18:]
+    _count_factors(imu.start.shape[0], kernel=False)
+    return _imu_jacobians_autodiff(state, imu, weight_sqrt, rotation_only)
+
+
+def _imu_jacobians_autodiff(state: CalibState, imu: ImuFactors, weight_sqrt,
+                            rotation_only: bool):
     pose1, pose2, arrs = _imu_args(state, imu)
     zeros = _zero_increments(state)
 
