@@ -21,12 +21,11 @@ Phases, in order; any failure exits non-zero:
      residual and Jacobian (C = 1) and the value of 3 candidates (C = 3),
      rotation-only on and off, and a zero time offset with the stamps on
      the frame grid and some factors without measurements; held to its
-     plain twin (``imu_factor_plain``) and, in float64, to the
-     ``torch.func`` path, within 1e-10 of the largest entry; in float32
-     the kernel's distance from the float64 twin on the same inputs
-     within 10 times the float32 twin's and within 1e-3 of the largest
-     entry; its time beside its bound and
-     the plain paths';
+     plain twin (``imu_factor_plain``), in float64 within 1e-10 of the
+     largest entry; in float32 the kernel's distance from the float64
+     twin on the same inputs within 10 times the float32 twin's and
+     within 1e-3 of the largest entry; its time beside its bound and the
+     twin's;
   4. the visual path at full width: 192 stereo 800x600 frames rendered by
      the port's simulator, written as PGM files and calibrated through
      ``vicalib_tpu_torch.cli.main`` (the linear model, camera-only); the
@@ -486,6 +485,14 @@ def _f32_pairs(xs, imu, W, ro, C, r, J, rt, Jt):
     return pairs
 
 
+def _kernel_state(state, candidates):
+    """``imu_factor``'s state tuple: a leading candidate dimension (added
+    unless ``candidates``), contiguous."""
+    xs = (state.q_wk, state.t_wk, state.v_w, state.g_dir, state.biases,
+          state.scales, state.time_offset)
+    return tuple((x if candidates else x[None]).contiguous() for x in xs)
+
+
 def _candidates(state):
     """Three candidate states stacked as the LM step's trial state: the
     state and two with moved frames, biases and time offset."""
@@ -521,11 +528,8 @@ def _twin_ops(fn):
 
 def imu_kernel_phase(dev):
     """Phase 3, the IMU factor kernel: see the module docstring."""
-    from torch.func import vmap
-
     from vicalib_tpu_torch import obs
     from vicalib_tpu_torch.imu import factor
-    from vicalib_tpu_torch.solver import residuals as res
 
     shapes = {"vi_sim": (192, 10.0, 100.0), "euroc": (400, 20.0, 200.0)}
     out = {}
@@ -552,33 +556,17 @@ def imu_kernel_phase(dev):
                 st = type(st0)(*[cast(x) for x in st0])
                 trial = _candidates(st)
                 for ro, C in ((False, 1), (True, 1), (False, 3), (True, 3)):
-                    s = trial if C == 3 else st
-                    kst = res._imu_kernel
-                    r, J = kst(s, imu, W, ro, jac=C == 1, candidates=C == 3)
-                    xs = (s.q_wk, s.t_wk, s.v_w, s.g_dir, s.biases,
-                          s.scales, s.time_offset)
-                    if C == 1:
-                        xs = tuple(x[None] for x in xs)
-                    rt, Jt = factor.imu_factor_plain(
-                        tuple(x.contiguous() for x in xs), imu.win_times,
-                        imu.win_gyro, imu.win_accel, imu.start, imu.end,
-                        imu.has_meas, imu.frame_i, W, ro, C == 1)
+                    xs = _kernel_state(trial if C == 3 else st, C == 3)
+                    args = (xs, imu.win_times, imu.win_gyro, imu.win_accel,
+                            imu.start, imu.end, imu.has_meas, imu.frame_i,
+                            W, ro, C == 1)
+                    r, J = factor.imu_factor(*args)
+                    rt, Jt = factor.imu_factor_plain(*args)
                     pairs = [("twin r", r, rt)]
                     if C == 1:
                         pairs.append(("twin J", J, Jt))
                     if dtype == torch.float32:
                         pairs = _f32_pairs(xs, imu, W, ro, C, r, J, rt, Jt)
-                    elif C == 1:
-                        ra, J1, J2, Js = res._imu_jacobians_autodiff(
-                            st, imu, W, ro)
-                        pairs += [("torch.func r", r[0], ra),
-                                  ("torch.func J", J[0],
-                                   torch.cat([J1, J2, Js], dim=2))]
-                    else:
-                        ra = torch.stack([res._imu_residuals_autodiff(
-                            type(st)(*[x[c] for x in trial]), imu, W, ro)
-                            for c in range(3)])
-                        pairs.append(("torch.func r", r, ra))
                     torch.cuda.synchronize()
                     errs = {}
                     for label, a, b in pairs:
@@ -604,17 +592,14 @@ def imu_kernel_phase(dev):
                         % (name, str(dtype)[6:], case, C, ro,
                            " ".join("%s %.2e" % kv for kv in errs.items())))
         # times at these shapes, float64
-        trial = _candidates(st64)
-        jac = lambda: res._imu_kernel(st64, imu64, W64, False, jac=True)
-        val = lambda: res._imu_kernel(trial, imu64, W64, False, jac=False,
-                                      candidates=True)
-        xs = tuple(x[None].contiguous() for x in (
-            st64.q_wk, st64.t_wk, st64.v_w, st64.g_dir, st64.biases,
-            st64.scales, st64.time_offset))
-        twin = lambda: factor.imu_factor_plain(
-            xs, imu64.win_times, imu64.win_gyro, imu64.win_accel,
-            imu64.start, imu64.end, imu64.has_meas, imu64.frame_i, W64,
-            False, True)
+        xs1 = _kernel_state(st64, False)
+        xs3 = _kernel_state(_candidates(st64), True)
+        common = (imu64.win_times, imu64.win_gyro, imu64.win_accel,
+                  imu64.start, imu64.end, imu64.has_meas, imu64.frame_i,
+                  W64, False)
+        jac = lambda: factor.imu_factor(xs1, *common, True)
+        val = lambda: factor.imu_factor(xs3, *common, False)
+        twin = lambda: factor.imu_factor_plain(xs1, *common, True)
         with obs.recording() as rec:
             jac()
             val()
@@ -626,16 +611,8 @@ def imu_kernel_phase(dev):
                "jac_ms": time_ms(lambda: [jac() for _ in range(20)]) / 20,
                "value_c3_ms": time_ms(lambda: [val() for _ in range(20)])
                / 20,
-               "plain_jac_ms": time_ms(lambda: res._imu_jacobians_autodiff(
-                   st64, imu64, W64, False)),
-               "plain_value_c3_ms": time_ms(lambda: vmap(
-                   lambda x: res._imu_residuals_autodiff(
-                       type(st64)(*x), imu64, W64, False))(tuple(trial))),
                "twin_jac_ms": time_ms(twin),
-               "host_jac_ms": host_time_ms(jac),
-               "device_launches_plain_jac": device_launches(
-                   lambda: res._imu_jacobians_autodiff(st64, imu64, W64,
-                                                       False))}
+               "host_jac_ms": host_time_ms(jac)}
         # bytes: the windows, bounds, flags, frame indices, weights and
         # frames read once, r and J written once
         nbytes = (8 * (K * M * 7 + 2 * K + 81 * K + 10 * F + 15
@@ -648,22 +625,19 @@ def imu_kernel_phase(dev):
                    bytes=nbytes, twin_ops=ops,
                    twin_ops_ms=ops / FP64_FLOPS_PER_S * 1e3)
         log("IMU factor kernel, %s: residual+Jacobian %.4f ms (host "
-            "enqueue %.4f ms), value of 3 candidates %.4f ms; torch.func "
-            "%.4f / %.4f ms, twin %.4f ms; bound %.4f ms (bytes: %d); the "
-            "twin's %d float64 element operations %.4f ms at the peak; "
-            "launches per call: kernel %g, torch.func %s device kernels"
+            "enqueue %.4f ms), value of 3 candidates %.4f ms; twin %.4f "
+            "ms; bound %.4f ms (bytes: %d); the twin's %d float64 element "
+            "operations %.4f ms at the peak; %g launches per call"
             % (name, row["jac_ms"], row["host_jac_ms"], row["value_c3_ms"],
-               row["plain_jac_ms"], row["plain_value_c3_ms"],
                row["twin_jac_ms"], row["bound_ms"], nbytes, ops,
-               row["twin_ops_ms"], row["launches_per_call"],
-               row["device_launches_plain_jac"]))
+               row["twin_ops_ms"], row["launches_per_call"]))
         out[name] = row
     e = out["euroc"]
     return [{"name": "imu_factor", "route": "cuda",
              "source": SOURCES["imu_factor"],
              "replaces": REPLACES["imu_factor"], "launches": None,
              "max_rel_err_f64": worst, "ms": e["jac_ms"],
-             "plain_ms": e["plain_jac_ms"], "bound_ms": e["bound_ms"],
+             "plain_ms": e["twin_jac_ms"], "bound_ms": e["bound_ms"],
              "bound_by": e["bound_by"], "library_ms": None,
              "shapes": out}]
 

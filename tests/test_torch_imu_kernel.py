@@ -1,17 +1,20 @@
-"""The IMU factor kernel's plain twin and its wiring, on the CPU.
+"""The IMU factor's wrapper and its plain twin, on the CPU.
 
-``imu.factor.imu_factor_plain`` repeats the CUDA kernel's arithmetic
+``imu.factor.imu_factor`` dispatches on the device: a CPU tensor takes
+``imu_factor_plain``, which repeats the CUDA kernel's arithmetic
 (``csrc/imu_factor.cu``): 13 dual lanes through the slots, then the
-closed-form pose-1, gravity and pose-2 columns.  Here it is held to the
-``torch.func`` path (``residuals.imu_residuals_and_jacobians``, jacrev
-inside vmap) on the 12-frame VI fixture of ``test_torch_lm_graph.py`` in
-float64, within 1e-10 of the largest entry, and to the JAX package's
-``imu_residuals_and_jacobians`` within 1e-9 (the tolerance of
-``test_torch_solver_vi.py``), the tie and ``has_meas`` cases included;
-the wrapper's checks, the
-counters and the kernel path's wiring (the twin standing in for the
-launch) are tested beside it.  On the card ``chip_smoke.py`` holds the
-kernel to the twin and to the ``torch.func`` path.
+closed-form pose-1, gravity and pose-2 columns.  Here the solver's entry
+points (``residuals.imu_residuals_and_jacobians`` and its siblings, which
+reach the twin through the wrapper on a CPU state) are held to an oracle
+defined below, reverse mode (``jacrev``) through
+``preintegrate.imu_factor_residual`` vmapped over factors, on the 12-frame
+VI fixture of ``test_torch_lm_graph.py`` in float64, within 1e-10 of the
+largest entry, and to the JAX package's ``imu_residuals_and_jacobians``
+within 1e-9 (the tolerance of ``test_torch_solver_vi.py``), the tie and
+``has_meas`` cases included; the wrapper's checks and dispatch, the
+counters and the solver's wiring (every call of the wrapper, the trial
+costs and the assembly against the oracle) are tested beside it.  On the
+card ``chip_smoke.py`` holds the kernel to the twin.
 """
 import dataclasses
 import importlib
@@ -21,11 +24,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.func import jacrev, vmap
 
 from vicalib_tpu.solver import problem as jp
 from vicalib_tpu.solver import residuals as jres
 from vicalib_tpu_torch import obs
-from vicalib_tpu_torch.imu import factor
+from vicalib_tpu_torch.geometry import se3
+from vicalib_tpu_torch.imu import factor, preintegrate
 from vicalib_tpu_torch.io import sim as tsim
 from vicalib_tpu_torch.solver import residuals as tres
 from vicalib_tpu_torch.solver.build import problem_from_sim
@@ -94,6 +99,49 @@ def _twin(state, imu, W, rotation_only, jac, C=1):
         imu.start, imu.end, imu.has_meas, imu.frame_i, W, rotation_only, jac)
 
 
+def _oracle_candidate(q_wk, t_wk, v_w, g_dir, biases, scales, time_offset,
+                      win_times, win_gyro, win_accel, start, end, has_meas,
+                      frame_i, weight_sqrt, rotation_only, jac):
+    """One candidate's (r (K, 9), J (K, 9, 33) or None): jacrev of
+    ``preintegrate.imu_factor_residual`` against the 33 tangent increments
+    at zero, vmapped over factors."""
+    def res(dx1, dx2, dxg, dxb, dxsf, dxt, q1, t1, v1, q2, t2, v2, wt, wg,
+            wa, s, e, h, W):
+        b = biases + dxb
+        r = preintegrate.imu_factor_residual(
+            se3.retract((q1, t1), dx1[:6]), v1 + dx1[6:9],
+            se3.retract((q2, t2), dx2[:6]), v2 + dx2[6:9], wt, wg, wa, s, e,
+            g_dir + dxg, b[:3], b[3:], scales + dxsf, time_offset + dxt[0],
+            h, weight_sqrt=W, rotation_only=rotation_only)
+        return r, r
+
+    zeros = [q_wk.new_zeros(n) for n in (9, 9, 2, 6, 6, 1)]
+    fi = frame_i
+    args = (q_wk[fi], t_wk[fi], v_w[fi], q_wk[fi + 1], t_wk[fi + 1],
+            v_w[fi + 1], win_times, win_gyro, win_accel, start, end, has_meas,
+            weight_sqrt)
+    if not jac:
+        return vmap(lambda *a: res(*zeros, *a)[0])(*args), None
+    J, r = vmap(lambda *a: jacrev(res, argnums=tuple(range(6)),
+                                  has_aux=True)(*zeros, *a))(*args)
+    return r, torch.cat(J, dim=-1)
+
+
+def _oracle_factor(state, *args):
+    """imu_factor's arguments and results by reverse mode, one candidate
+    at a time."""
+    outs = [_oracle_candidate(*xs, *args) for xs in zip(*state)]
+    r = torch.stack([r for r, _ in outs])
+    return r, None if outs[0][1] is None else torch.stack(
+        [J for _, J in outs])
+
+
+def _oracle(state, imu, W, rotation_only, jac, C=1):
+    return _oracle_factor(
+        _kernel_state(state, C), imu.win_times, imu.win_gyro, imu.win_accel,
+        imu.start, imu.end, imu.has_meas, imu.frame_i, W, rotation_only, jac)
+
+
 def _close(a, b):
     scale = float(b.abs().max())
     assert float((a - b).abs().max()) <= TOL * scale, (
@@ -103,8 +151,9 @@ def _close(a, b):
 @pytest.mark.parametrize("rotation_only", [False, True])
 @pytest.mark.parametrize("case", ["offset", "grid"])
 def test_twin_equals_autodiff(vi, case, rotation_only):
-    """Residuals and all 33 Jacobian columns of the twin against jacrev,
-    float64, within 1e-10 of the largest entry."""
+    """Residuals and all 33 Jacobian columns of the solver's entry points
+    on a CPU state (the twin, through the wrapper) against the jacrev
+    oracle, float64, within 1e-10 of the largest entry."""
     data, state, W = vi
     imu = data.imu
     if case == "grid":
@@ -112,19 +161,20 @@ def test_twin_equals_autodiff(vi, case, rotation_only):
     r, J1, J2, Jsh = tres.imu_residuals_and_jacobians(state, imu, W,
                                                       rotation_only)
     J = torch.cat([J1, J2, Jsh], dim=2)
-    rt, Jt = _twin(state, imu, W, rotation_only, jac=True)
-    assert Jt.shape == (1,) + J.shape
-    _close(rt[0], r)
-    _close(Jt[0], J)
+    ro, Jo = _oracle(state, imu, W, rotation_only, jac=True)
+    assert Jo.shape == (1,) + J.shape
+    _close(r, ro[0])
+    _close(J, Jo[0])
     # every column carries weight, and the masked rows are exact zeros
-    assert bool((J.abs().amax(dim=(0, 1)) > 0).all())
+    assert bool((Jo[0].abs().amax(dim=(0, 1)) > 0).all())
     if rotation_only:
-        assert not bool(rt[0][:, [0, 1, 2, 6, 7, 8]].any())
+        assert not bool(r[:, [0, 1, 2, 6, 7, 8]].any())
     if case == "grid":
-        assert not bool(rt[0, 3].any()) and not bool(Jt[0, 3].any())
+        assert not bool(r[3].any()) and not bool(J[3].any())
+    _close(tres.imu_residuals(state, imu, W, rotation_only), ro[0])
     rv, none = _twin(state, imu, W, rotation_only, jac=False)
     assert none is None
-    _close(rv[0], r)
+    _close(rv[0], ro[0])
 
 
 @pytest.fixture(scope="module")
@@ -184,7 +234,7 @@ def _candidates(state, C=3):
 
 def test_twin_candidates_equal_one_at_a_time(vi):
     """C = 3 candidates in one value-only evaluation against each alone and
-    against the torch.func path."""
+    against the oracle."""
     data, state, W = vi
     trial_b, outs = _candidates(state)
     imu = data.imu
@@ -197,49 +247,57 @@ def test_twin_candidates_equal_one_at_a_time(vi):
     for c, s in enumerate(outs):
         r1, _ = _twin(s, imu, W, False, jac=False)
         _close(r3[c], r1[0])
-        _close(r3[c], tres.imu_residuals(s, imu, W, False))
+        _close(r3[c], _oracle(s, imu, W, False, jac=False)[0][0])
 
 
-def test_cpu_takes_the_autodiff_path(vi, monkeypatch):
-    """A CPU state never reaches the wrapper: no launch, no kernel factors,
-    every factor counted."""
+def test_cpu_takes_the_twin(vi, monkeypatch):
+    """A CPU state takes the twin through the wrapper: no build, no launch,
+    no kernel factors, every factor counted."""
     data, state, W = vi
 
-    def no_launch(*a, **k):
-        raise AssertionError("the kernel wrapper was called")
+    def no_build(*a, **k):
+        raise AssertionError("the kernel was built")
 
-    monkeypatch.setattr(tres, "imu_factor", no_launch)
+    calls = []
+    twin = factor.imu_factor_plain
+
+    def record(state, *args):
+        calls.append((state[0].shape[0], args[-1]))
+        return twin(state, *args)
+
+    monkeypatch.setattr(factor, "build", no_build)
+    monkeypatch.setattr(factor, "imu_factor_plain", record)
     K = data.imu.start.shape[0]
     trial_b, _ = _candidates(state)
     with obs.recording() as rec:
         tres.imu_residuals(state, data.imu, W, False)
         tres.imu_residuals_and_jacobians(state, data.imu, W, True)
         tres.imu_trial_residuals(trial_b, data.imu, W, False)
+    assert calls == [(1, False), (1, True), (3, False)]
     assert rec.count("vicalib.imu.factors") == 5 * K
     assert rec.count("vicalib.imu.kernel_factors") == 0
     assert rec.count("vicalib.imu.kernel_launches") == 0
 
 
 @pytest.fixture
-def twin_as_kernel(monkeypatch):
-    """The kernel path on the CPU: the twin stands in for the launch."""
+def wrapper_calls(monkeypatch):
+    """The solver's calls of the wrapper, as (candidates, with Jacobian)."""
     calls = []
+    wrapper = tres.imu_factor
 
-    def launch(state, *args):
-        _, J = out = factor.imu_factor_plain(state, *args)
-        calls.append((state[0].shape[0], J is not None))
-        return out
+    def record(state, *args):
+        calls.append((state[0].shape[0], args[-1]))
+        return wrapper(state, *args)
 
-    monkeypatch.setattr(tres, "_on_card", lambda state: True)
-    monkeypatch.setattr(tres, "imu_factor", launch)
+    monkeypatch.setattr(tres, "imu_factor", record)
     return calls
 
 
-def test_trial_costs_equal_the_candidate_loop(vi, twin_as_kernel,
+def test_trial_costs_equal_the_candidate_loop(vi, wrapper_calls,
                                               monkeypatch):
     """The LM step's trial costs over 3 candidates (one C = 3 evaluation of
-    the IMU terms) against robust_costs one candidate at a time, on the
-    kernel path and on the torch.func path."""
+    the IMU terms) against robust_costs one candidate at a time, and
+    against the trial costs with the oracle in the wrapper's place."""
     data, state, W = vi
     trial_b, outs = _candidates(state)
     scale = torch.ones((), dtype=F64)
@@ -247,19 +305,20 @@ def test_trial_costs_equal_the_candidate_loop(vi, twin_as_kernel,
         got = tasm.trial_costs(trial_b, data, W, scale, False)
         loop = torch.stack([tasm.robust_costs(s, data, W, scale, False)[0]
                             for s in outs])
-    assert twin_as_kernel == [(3, False)] + [(1, False)] * 3
+    assert wrapper_calls == [(3, False)] + [(1, False)] * 3
     K = data.imu.start.shape[0]
     assert rec.count("vicalib.imu.factors") == 6 * K
-    assert rec.count("vicalib.imu.kernel_factors") == 6 * K
+    assert rec.count("vicalib.imu.kernel_factors") == 0
     torch.testing.assert_close(got, loop, rtol=1e-12, atol=0)
-    monkeypatch.setattr(tres, "_on_card", lambda state: False)
-    plain = tasm.trial_costs(trial_b, data, W, scale, False)
-    torch.testing.assert_close(got, plain, rtol=1e-10, atol=0)
+    monkeypatch.setattr(tres, "imu_factor", _oracle_factor)
+    want = tasm.trial_costs(trial_b, data, W, scale, False)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
 
 
-def test_assemble_on_the_kernel_path(vi, twin_as_kernel, monkeypatch):
-    """The normal equations assembled from the kernel path's (C = 1)
-    residuals and Jacobian columns equal the torch.func path's."""
+def test_assemble_on_the_kernel_path(vi, wrapper_calls, monkeypatch):
+    """The normal equations assembled through the wrapper (one C = 1 call
+    with the Jacobian) equal those assembled with the oracle in the
+    wrapper's place."""
     from vicalib_tpu_torch.solver import problem as tp
 
     data, state, W = vi
@@ -270,8 +329,8 @@ def test_assemble_on_the_kernel_path(vi, twin_as_kernel, monkeypatch):
     smask = tp.shared_mask(data.layout, flags, F64, "cpu")
     scale = torch.ones((), dtype=F64)
     got = tasm.assemble(state, data, W, fmask, smask, scale, False)
-    assert twin_as_kernel == [(1, True)]
-    monkeypatch.setattr(tres, "_on_card", lambda state: False)
+    assert wrapper_calls == [(1, True)]
+    monkeypatch.setattr(tres, "imu_factor", _oracle_factor)
     want = tasm.assemble(state, data, W, fmask, smask, scale, False)
     for a, b in zip(got, want):
         _close(a, b)
@@ -287,10 +346,10 @@ def _args(vi):
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed_dtype", "no_candidates",
                                  "shape", "noncontiguous", "has_meas",
-                                 "cpu"])
+                                 "meta"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(vi, bad):
-    """imu_factor raises for a wrong dtype, shape or contiguity, and for a
-    tensor that is not on a CUDA device."""
+    """imu_factor raises for a wrong dtype, shape or contiguity, and for
+    tensors on a device that is neither the CPU nor a CUDA card."""
     args = _args(vi)
     st = list(args[0])
     if bad == "dtype":
@@ -305,8 +364,27 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(vi, bad):
         args[8] = args[8].transpose(1, 2)
     elif bad == "has_meas":
         args[6] = args[6].to(torch.uint8)
+    elif bad == "meta":
+        st = [x.to("meta") for x in st]
+        args[1:9] = [x.to("meta") for x in args[1:9]]
     args[0] = tuple(st)
     err = (TypeError if bad in ("dtype", "mixed_dtype", "has_meas")
            else ValueError)
     with pytest.raises(err):
         factor.imu_factor(*args)
+
+
+def test_wrapper_takes_the_twin_on_cpu_and_counts_no_launch(vi):
+    """On CPU tensors the wrapper returns the twin's results to the last
+    bit, with and without the Jacobian, and counts factors but no launch."""
+    args = _args(vi)
+    K = args[4].shape[0]
+    with obs.recording() as rec:
+        r, J = factor.imu_factor(*args)
+        rv, none = factor.imu_factor(*args[:-1], False)
+    rt, Jt = factor.imu_factor_plain(*args)
+    assert torch.equal(r, rt) and torch.equal(J, Jt)
+    assert none is None and torch.equal(rv, rt)
+    assert rec.count("vicalib.imu.factors") == 2 * K
+    assert rec.count("vicalib.imu.kernel_factors") == 0
+    assert rec.count("vicalib.imu.kernel_launches") == 0

@@ -1,12 +1,12 @@
 // The IMU factor (SwitchedFullImuCostFunction, ceres-cost-functions.h:
 // 379-490) and its Jacobian for Hopper (sm_90a), in float and double.
 //
-// Replaces no TPU kernel: the JAX package leaves the factor to XLA.  The
-// port evaluated it with torch.func (jacrev inside vmap through the RK4
-// preintegration), some 4,400 small float64 ops an LM step, the largest
-// share of the LM graphs' nodes and of their bytes.  This kernel computes
-// per factor what vicalib_tpu_torch/solver/residuals.py::_imu_one computes
-// (preintegrate.imu_factor_residual): the virtual measurement sequence,
+// Replaces no TPU kernel: the JAX package leaves the factor to XLA.
+// Written with torch.func (reverse mode inside vmap through the RK4
+// preintegration) it is some 4,400 small float64 ops an LM step, the
+// largest share of the LM graphs' nodes and of their bytes.  This kernel
+// computes per factor what preintegrate.imu_factor_residual computes at
+// the solver's tangent increments: the virtual measurement sequence,
 // the factorised RK4 chain, the normalised end quaternion, the SE(3) log,
 // the whitening by weight_sqrt, the rotation-only rows and the has_meas
 // zeros; and optionally the Jacobian against the 33 tangent columns
@@ -51,7 +51,7 @@
 //
 // The window's stamps must be non-decreasing (imu.buffer.gather_windows),
 // so that a binary search finds the count of stamps at or before a query,
-// which the twin and the torch.func path count directly.
+// which preintegrate.virtual_sequence counts directly.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

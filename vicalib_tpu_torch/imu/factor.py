@@ -9,9 +9,9 @@ rotation-only stage, zeros without measurements, and optionally its
 Jacobian against the 33 tangent columns of
 ``residuals.imu_residuals_and_jacobians``: dx1 (9), dx2 (9), gravity (2),
 biases (6), scales (6), time offset (1).  It replaces no TPU kernel: the
-JAX package leaves the factor to XLA, and the port's ``torch.func`` path
-(jacrev inside vmap through the RK4 chain) dispatched ~4,400 small
-float64 ops an LM step, the largest share of the LM graphs' nodes.
+JAX package leaves the factor to XLA (reverse mode inside vmap through
+the RK4 chain), which written the same way in PyTorch is ~4,400 small
+float64 ops an LM step.
 
 The derivatives are forward-mode duals, as Ceres's jets in the reference.
 Of the 33 directions only 13 flow along the slots, through the virtual
@@ -38,12 +38,17 @@ epilogue; value only, one warp per (candidate, factor).  A leading
 candidate dimension C of the state evaluates the LM step's damping
 candidates in one launch.
 
-``imu_factor`` launches the kernel for CUDA tensors and raises for any
-other; ``imu_factor_plain`` is its twin on any device: the same jets,
-vectorised over candidates, factors and intervals, with the prefix product
-as a doubling scan.  ``tests/test_torch_imu_kernel.py`` holds the twin to
-the ``torch.func`` path on the CPU; ``chip_smoke.py`` holds the kernel to
-both on the card.
+``imu_factor`` dispatches on the tensors' device alone: a CPU tensor takes
+``imu_factor_plain``, a CUDA tensor launches the kernel, any other raises.
+The twin is the same jets in plain PyTorch, vectorised over candidates,
+factors and intervals, with the prefix product as a doubling scan.
+``tests/test_torch_imu_kernel.py`` holds the twin to reverse mode through
+``preintegrate.imu_factor_residual`` and to the JAX package on the CPU;
+``chip_smoke.py`` holds the kernel to the twin on the card.  Counters:
+``vicalib.imu.factors`` (every candidate factor evaluated, on either
+device), ``vicalib.imu.kernel_factors`` (those the kernel evaluated) and
+``vicalib.imu.kernel_launches``, counted when the Python runs, eagerly or
+at a CUDA graph's capture.
 """
 from __future__ import annotations
 
@@ -142,22 +147,29 @@ def _check(state, win_times, win_gyro, win_accel, start, end, has_meas,
 
 def imu_factor(state, win_times, win_gyro, win_accel, start, end, has_meas,
                frame_i, weight_sqrt, rotation_only: bool, jac: bool):
-    """The IMU factors on the card, in one launch.
+    """The IMU factors of C candidate states, in one launch on the card.
 
     ``state``: (q_wk (C,F,4), t_wk (C,F,3), v_w (C,F,3), g_dir (C,2),
     biases (C,6), scales (C,6), time_offset (C,)), C candidate states;
     the windows (K, M[, 3]), start, end (K,), has_meas (K,) bool, frame_i
     (K,) int64 (factor k couples frames frame_i[k] and frame_i[k] + 1) and
     weight_sqrt (K, 9, 9) or None are shared by the candidates.  Returns
-    (r (C, K, 9), J (C, K, 9, 33) or None).  CUDA tensors only; raises for
-    any other device or for arguments the kernel does not take."""
+    (r (C, K, 9), J (C, K, 9, 33) or None).  CPU tensors take
+    :func:`imu_factor_plain`, CUDA tensors the kernel; raises for any
+    other device or for arguments the kernel does not take."""
     _check(state, win_times, win_gyro, win_accel, start, end, has_meas,
            frame_i, weight_sqrt)
     q_wk = state[0]
-    if q_wk.device.type != "cuda":
+    if q_wk.device.type not in ("cpu", "cuda"):
         raise ValueError("no IMU factor kernel for device %s" % q_wk.device)
-    lib = build()
     C, K = q_wk.shape[0], start.shape[0]
+    obs.count("vicalib.imu.factors", C * K)
+    if q_wk.device.type == "cpu":
+        return imu_factor_plain(state, win_times, win_gyro, win_accel, start,
+                                end, has_meas, frame_i, weight_sqrt,
+                                rotation_only, jac)
+    obs.count("vicalib.imu.kernel_factors", C * K)
+    lib = build()
     r = q_wk.new_empty((C, K, 9))
     J = q_wk.new_empty((C, K, 9, N_COLS)) if jac else None
     ptrs = [x.data_ptr() for x in (*state, win_times, win_gyro, win_accel,
@@ -183,9 +195,12 @@ class _Jet:
     __slots__ = ("v", "d")
 
     def __init__(self, v, d):
-        shape = torch.broadcast_shapes(v.shape, d.shape[:-1])
-        self.v = v.expand(shape)
-        self.d = d.expand(shape + d.shape[-1:])
+        if v.shape != d.shape[:-1]:
+            shape = torch.broadcast_shapes(v.shape, d.shape[:-1])
+            v = v.expand(shape)
+            d = d.expand(shape + d.shape[-1:])
+        self.v = v
+        self.d = d
 
     def at(self, index):
         """The jet at ``index`` of the value's last axis."""
@@ -277,7 +292,8 @@ def _extremum(a, b, larger):
     """torch.maximum / torch.minimum of a jet and a jet or tensor: a tie
     splits the derivative evenly between the two."""
     bv, bd = (b.v, b.d) if isinstance(b, _Jet) else (
-        torch.as_tensor(b, dtype=a.v.dtype), torch.zeros_like(a.d))
+        b if isinstance(b, torch.Tensor) else torch.full_like(a.v, b),
+        torch.zeros_like(a.d))
     a_wins = a.v > bv if larger else a.v < bv
     b_wins = a.v < bv if larger else a.v > bv
     d = torch.where(a_wins[..., None], a.d,
@@ -482,7 +498,7 @@ def _pose_seeds(q, t, v, col0, n_dirs):
                 dt[i][..., col0 + a] = rot[..., i]
             for i in range(4):
                 dq[i][..., col0 + 3 + a] = half[..., i]
-            dv[a][..., col0 + 6 + a] = 1.0
+            dv[a][..., col0 + 6 + a].fill_(1.0)
     return ([_Jet(x, d) for x, d in zip(q.unbind(-1), dq)],
             [_Jet(x, d) for x, d in zip(t.unbind(-1), dt)],
             [_Jet(x, d) for x, d in zip(v.unbind(-1), dv)])
@@ -492,7 +508,8 @@ def imu_factor_plain(state, win_times, win_gyro, win_accel, start, end,
                      has_meas, frame_i, weight_sqrt, rotation_only: bool,
                      jac: bool):
     """The kernel's arithmetic in plain PyTorch, on any device: the same
-    arguments and results as :func:`imu_factor`."""
+    arguments and results as :func:`imu_factor`, which calls it for CPU
+    tensors."""
     q_wk, t_wk, v_w, g_dir, biases, scales, time_offset = state
     C = q_wk.shape[0]
     K = start.shape[0]

@@ -16,11 +16,10 @@ normalization (types.h:344-345).
 
 Every function here is pure and free of in-place writes, host reads, host
 constants and branches on tensor values, so it runs under
-``torch.func.vmap`` (over factors, and again over LM damping candidates)
-and ``jacrev``, and inside a CUDA graph capture.  Degenerate
-(zero-length) intervals keep every denominator "safe" before the
-``torch.where`` that discards them: the untaken branch still runs backward,
-and a NaN there would survive as NaN * 0.
+``torch.func.vmap`` (over factors) and ``jacrev``, and inside a CUDA
+graph capture.  Degenerate (zero-length) intervals keep every denominator
+"safe" before the ``torch.where`` that discards them: the untaken branch
+still runs backward, and a NaN there would survive as NaN * 0.
 """
 from __future__ import annotations
 

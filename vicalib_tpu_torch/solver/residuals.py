@@ -5,27 +5,21 @@
   Jacobians; only the camera model's 2-D projection is differentiated, per
   point, with ``torch.func.jacfwd``.
 - VI factor (SwitchedFullImuCostFunction, ceres-cost-functions.h:379-490):
-  9-D per consecutive-frame pair, see imu.preintegrate.  On a CUDA state
-  one launch of the IMU factor kernel (imu.factor) evaluates every factor,
-  with its Jacobian by forward-mode duals, and every damping candidate's
-  factors at once; elsewhere the Jacobians are reverse-mode
-  (``torch.func.jacrev``: 9 outputs against 33 tangent inputs) in the
-  tangent space at zero increment, vmapped over factors.  Counters
-  ``vicalib.imu.factors`` (every factor evaluated, by either path) and
-  ``vicalib.imu.kernel_factors`` (those the kernel evaluated) count when
-  the Python runs, eagerly or at a CUDA graph's capture.
+  9-D per consecutive-frame pair, see imu.preintegrate.  One call of
+  ``imu.factor.imu_factor`` evaluates every factor, with its Jacobian
+  against the 33 tangent columns at zero increment by forward-mode duals,
+  and every damping candidate's factors at once: the CUDA kernel on a
+  CUDA state, its plain twin on a CPU state.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-from torch.func import jacfwd, jacrev, vmap
+from torch.func import jacfwd, vmap
 
-from .. import obs
 from ..cameras import get_model
 from ..geometry import se3, so3
-from ..imu import preintegrate
 from ..imu.factor import imu_factor
 from .problem import CalibState
 
@@ -176,53 +170,9 @@ def reproj_residuals_and_jacobians(state: CalibState, obs: CameraObs,
 
 
 # ----------------------------------------------------------------- IMU factors
-def _imu_one(state: CalibState, k_pose1, k_pose2, win_t, win_g, win_a,
-             start, end, has_meas, weight_sqrt, rotation_only,
-             dx1, dx2, dx_g, dx_b, dx_sf, dx_t):
-    """Single IMU factor residual with tangent increments applied."""
-    q1, t1, v1 = k_pose1
-    q2, t2, v2 = k_pose2
-    T1 = se3.retract((q1, t1), dx1[:6])
-    v1 = v1 + dx1[6:9]
-    T2 = se3.retract((q2, t2), dx2[:6])
-    v2 = v2 + dx2[6:9]
-    b = state.biases + dx_b
-    return preintegrate.imu_factor_residual(
-        T1, v1, T2, v2, win_t, win_g, win_a, start, end,
-        state.g_dir + dx_g, b[:3], b[3:], state.scales + dx_sf,
-        state.time_offset + dx_t[0], has_meas, weight_sqrt=weight_sqrt,
-        rotation_only=rotation_only)
-
-
-def _imu_args(state: CalibState, imu: ImuFactors):
-    fi = imu.frame_i
-    pose1 = (state.q_wk[fi], state.t_wk[fi], state.v_w[fi])
-    pose2 = (state.q_wk[fi + 1], state.t_wk[fi + 1], state.v_w[fi + 1])
-    arrs = (imu.win_times, imu.win_gyro, imu.win_accel, imu.start, imu.end,
-            imu.has_meas)
-    return pose1, pose2, arrs
-
-
-def _zero_increments(state):
-    z = state.t_wk.new_zeros
-    return z(9), z(9), z(2), z(6), z(6), z(1)
-
-
-def _on_card(state: CalibState) -> bool:
-    """Whether the kernel evaluates the IMU factors of ``state``: a CUDA
-    state."""
-    return state.t_wk.device.type == "cuda"
-
-
-def _count_factors(n: int, kernel: bool):
-    obs.count("vicalib.imu.factors", n)
-    if kernel:
-        obs.count("vicalib.imu.kernel_factors", n)
-
-
-def _imu_kernel(state: CalibState, imu: ImuFactors, weight_sqrt,
+def _imu_factor(state: CalibState, imu: ImuFactors, weight_sqrt,
                 rotation_only: bool, jac: bool, candidates: bool = False):
-    """The IMU factor kernel on ``state`` (with a leading candidate
+    """imu.factor.imu_factor on ``state`` (with a leading candidate
     dimension where ``candidates``): (r (C, K, 9), J (C, K, 9, 33) or
     None)."""
     xs = (state.q_wk, state.t_wk, state.v_w, state.g_dir, state.biases,
@@ -232,45 +182,25 @@ def _imu_kernel(state: CalibState, imu: ImuFactors, weight_sqrt,
     xs = tuple(x.contiguous() for x in xs)
     if weight_sqrt is not None:
         weight_sqrt = weight_sqrt.contiguous()
-    _count_factors(xs[0].shape[0] * imu.start.shape[0], kernel=True)
     return imu_factor(xs, imu.win_times, imu.win_gyro, imu.win_accel,
                       imu.start, imu.end, imu.has_meas, imu.frame_i,
                       weight_sqrt, rotation_only, jac)
 
 
-def _imu_residuals_autodiff(state: CalibState, imu: ImuFactors, weight_sqrt,
-                            rotation_only: bool):
-    pose1, pose2, arrs = _imu_args(state, imu)
-    zeros = _zero_increments(state)
-
-    def one(p1, p2, wt, wg, wa, s, e, h, W):
-        return _imu_one(state, p1, p2, wt, wg, wa, s, e, h, W,
-                        rotation_only, *zeros)
-
-    return vmap(one)(pose1, pose2, *arrs, weight_sqrt)
-
-
 def imu_residuals(state: CalibState, imu: ImuFactors, weight_sqrt,
                   rotation_only: bool):
     """(K, 9) residuals for all IMU factors; ``weight_sqrt`` (K, 9, 9)."""
-    if _on_card(state):
-        return _imu_kernel(state, imu, weight_sqrt, rotation_only,
-                           jac=False)[0][0]
-    _count_factors(imu.start.shape[0], kernel=False)
-    return _imu_residuals_autodiff(state, imu, weight_sqrt, rotation_only)
+    return _imu_factor(state, imu, weight_sqrt, rotation_only,
+                       jac=False)[0][0]
 
 
 def imu_trial_residuals(trial_b: CalibState, imu: ImuFactors, weight_sqrt,
                         rotation_only: bool):
     """(C, K, 9) residuals of a batched trial state's C candidates (every
-    tensor of ``trial_b`` with a leading candidate dimension): one kernel
-    launch on the card, the candidates vmapped elsewhere."""
-    if _on_card(trial_b):
-        return _imu_kernel(trial_b, imu, weight_sqrt, rotation_only,
-                           jac=False, candidates=True)[0]
-    _count_factors(trial_b.t_wk.shape[0] * imu.start.shape[0], kernel=False)
-    return vmap(lambda s: _imu_residuals_autodiff(
-        CalibState(*s), imu, weight_sqrt, rotation_only))(tuple(trial_b))
+    tensor of ``trial_b`` with a leading candidate dimension), in one
+    evaluation."""
+    return _imu_factor(trial_b, imu, weight_sqrt, rotation_only, jac=False,
+                       candidates=True)[0]
 
 
 def imu_residuals_and_jacobians(state: CalibState, imu: ImuFactors,
@@ -280,30 +210,5 @@ def imu_residuals_and_jacobians(state: CalibState, imu: ImuFactors,
     Returns (r (K,9), J1 (K,9,9), J2 (K,9,9), J_sh (K,9,15)) where the shared
     columns are [g(2), biases(6), scales(6), time_offset(1)].
     """
-    if _on_card(state):
-        r, J = _imu_kernel(state, imu, weight_sqrt, rotation_only, jac=True)
-        return r[0], J[0, ..., :9], J[0, ..., 9:18], J[0, ..., 18:]
-    _count_factors(imu.start.shape[0], kernel=False)
-    return _imu_jacobians_autodiff(state, imu, weight_sqrt, rotation_only)
-
-
-def _imu_jacobians_autodiff(state: CalibState, imu: ImuFactors, weight_sqrt,
-                            rotation_only: bool):
-    pose1, pose2, arrs = _imu_args(state, imu)
-    zeros = _zero_increments(state)
-
-    def f(dx1, dx2, dxg, dxb, dxsf, dxt, p1, p2, wt, wg, wa, s, e, h, W):
-        return _imu_one(state, p1, p2, wt, wg, wa, s, e, h, W,
-                        rotation_only, dx1, dx2, dxg, dxb, dxsf, dxt)
-
-    def f_aux(*a):
-        r = f(*a)
-        return r, r
-
-    def one(p1, p2, wt, wg, wa, s, e, h, W):
-        (J1, J2, Jg, Jb, Jsf, Jt), r = jacrev(
-            f_aux, argnums=(0, 1, 2, 3, 4, 5), has_aux=True)(
-            *zeros, p1, p2, wt, wg, wa, s, e, h, W)
-        return r, J1, J2, torch.cat([Jg, Jb, Jsf, Jt], dim=1)
-
-    return vmap(one)(pose1, pose2, *arrs, weight_sqrt)
+    r, J = _imu_factor(state, imu, weight_sqrt, rotation_only, jac=True)
+    return r[0], J[0, ..., :9], J[0, ..., 9:18], J[0, ..., 18:]
